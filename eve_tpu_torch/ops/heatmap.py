@@ -1,0 +1,91 @@
+"""Heatmap rendering, soft-argmax and the gaze-history recurrence.
+
+The counterpart of ``eve_tpu/ops/heatmap.py``. The plain versions
+(``make_heatmaps``, ``soft_argmax``) are the ones beside the kernels in
+``eve_tpu_torch/kernels/heatmap_kernels.py``. The dispatchers
+``make_heatmaps_fast`` / ``soft_argmax_fast`` take any leading dims: on a
+CUDA tensor they go through the kernel's ``autograd.Function``, on a CPU
+tensor through the plain version. There is no switch.
+
+``history_update`` / ``decayed_history_scan`` are the O(T) recurrence
+H_t = decay^dt * H_{t-1} + valid_t * h_t, with zero-timestamp (padded)
+frames skipped.
+"""
+
+import torch
+
+from eve_tpu_torch.kernels.heatmap_kernels import (
+    HEATMAP_H, HEATMAP_W, SCREEN_SIZE, SOFTARGMAX_BETA, RenderHeatmaps,
+    SoftArgmax, make_heatmaps_plain as make_heatmaps,
+    soft_argmax_plain as soft_argmax)
+
+__all__ = ['make_heatmaps', 'soft_argmax', 'make_heatmaps_fast',
+           'soft_argmax_fast', 'history_update', 'decayed_history_scan']
+
+
+def history_update(carry, heatmap, timestamp, validity, decay_per_ms=0.999):
+    """One step of the decayed gaze-history recurrence.
+
+    Args:
+      carry: ``(H, last_ts)`` with H (..., H, W) float32 and last_ts (...,)
+        float32 (0 means "no frame seen yet").
+      heatmap: (..., H, W) history-sigma heatmap for this frame.
+      timestamp: (...,) frame timestamp in nanoseconds (0 for padded frames).
+      validity: (...,) 0/1 validity gate for this frame.
+
+    Returns ``(new_carry, history_map)``.
+    """
+    H, last_ts = carry
+    is_real = timestamp > 0
+    dt_ms = (timestamp - last_ts) * 1e-6
+    decay = torch.pow(torch.tensor(decay_per_ms, dtype=torch.float32,
+                                   device=dt_ms.device), dt_ms)
+    # First real frame: no decay of the (zero) history; padded frame: freeze.
+    scale = torch.where(is_real & (last_ts > 0), decay,
+                        torch.ones_like(decay))
+    add = torch.where(is_real, validity.to(H.dtype), torch.zeros_like(H[..., 0, 0]))
+    new_H = scale[..., None, None] * H + add[..., None, None] * heatmap
+    new_last = torch.where(is_real, timestamp, last_ts)
+    new_H = torch.where(is_real[..., None, None], new_H, H)
+    return (new_H, new_last), new_H
+
+
+def decayed_history_scan(heatmaps, timestamps, validities, decay_per_ms=0.999):
+    """(B, T, H, W) maps, (B, T) stamps and validities -> (B, T, H, W)."""
+    B, T, h, w = heatmaps.shape
+    carry = (torch.zeros((B, h, w), dtype=torch.float32,
+                         device=heatmaps.device),
+             torch.zeros((B,), dtype=torch.float32, device=heatmaps.device))
+    out = []
+    for t in range(T):
+        carry, hist = history_update(
+            carry, heatmaps[:, t].float(), timestamps[:, t].float(),
+            validities[:, t], decay_per_ms=decay_per_ms)
+        out.append(hist)
+    return torch.stack(out, dim=1)
+
+
+def make_heatmaps_fast(centres_px, sigma, heatmap_size=(HEATMAP_W, HEATMAP_H),
+                       actual_screen_size=SCREEN_SIZE):
+    """``make_heatmaps`` through the render kernel on a CUDA tensor."""
+    if centres_px.device.type != 'cuda':
+        return make_heatmaps(centres_px, sigma, heatmap_size,
+                             actual_screen_size)
+    lead = centres_px.shape[:-1]
+    flat = centres_px.reshape(-1, 2).float().contiguous()
+    out = RenderHeatmaps.apply(flat, sigma, tuple(heatmap_size),
+                               tuple(actual_screen_size))
+    return out.reshape(lead + out.shape[1:])
+
+
+def soft_argmax_fast(heatmaps, heatmap_size=(HEATMAP_W, HEATMAP_H),
+                     actual_screen_size=SCREEN_SIZE,
+                     beta=SOFTARGMAX_BETA):
+    """``soft_argmax`` through the soft-argmax kernel on a CUDA tensor."""
+    if heatmaps.device.type != 'cuda':
+        return soft_argmax(heatmaps, heatmap_size, actual_screen_size, beta)
+    lead = heatmaps.shape[:-2]
+    flat = heatmaps.reshape((-1,) + tuple(heatmaps.shape[-2:])).contiguous()
+    out = SoftArgmax.apply(flat, tuple(heatmap_size),
+                           tuple(actual_screen_size), beta)
+    return out.reshape(lead + (2,))

@@ -1,0 +1,671 @@
+"""Serving engine: micro-batched, stateful EVE inference on one device.
+
+The counterpart of ``eve_tpu/serve.py`` (the spec+params, host-stacked
+path), with the same contract:
+
+- A background batcher thread gathers requests from a bounded queue for up
+  to ``max_delay_ms`` (or until ``max_batch`` are pending) and runs them as
+  one forward, padded to ``max_batch`` so every dispatch has one shape.
+- Sessions carry the recurrent state (EyeNet cells, RefineNet bottleneck)
+  across consecutive chunks of one video, so results match the whole video
+  as one clip. Chunks of one session run strictly in submission order; a
+  failed or expired chunk marks the session broken, and every successor
+  fails until the client closes the session and restarts the stream.
+  Requests without a session get fresh state.
+- Queue bound, request timeouts, session TTL, drain/stop and stats.
+
+PyTorch runs eagerly, so there is no per-signature compile cache;
+``max_signatures`` still bounds the distinct input shapes a client can
+send. AOT artifacts, data-parallel meshes and device-resident session
+state are later slices of the port.
+
+The HTTP front end (``make_http_server``) is stdlib-only with numpy
+``.npz`` bodies, the same protocol as eve_tpu's.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import logging
+import queue
+import threading
+import time
+import uuid
+from concurrent.futures import Future, TimeoutError as FuturesTimeoutError
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from eve_tpu_torch.models import eve as eve_lib
+from eve_tpu_torch.models.eve import tree_map
+
+logger = logging.getLogger(__name__)
+
+# Outputs served by default: the quantities the reference's evaluation
+# scores, plus gaze vectors.
+DEFAULT_SERVED_OUTPUTS = (
+    'PoG_px_initial', 'PoG_px_final', 'PoG_cm_final',
+    'left_pupil_size', 'right_pupil_size', 'g_initial', 'g_final',
+)
+
+
+class UnknownSessionError(KeyError):
+    """The request names a session that does not (or no longer) exist."""
+
+
+class EngineOverloadedError(RuntimeError):
+    """The request queue is full or the request timed out waiting in it."""
+
+
+class EngineDrainingError(RuntimeError):
+    """The engine is draining for shutdown and accepts no new requests."""
+
+
+@dataclass
+class _Request:
+    inputs: Dict[str, np.ndarray]  # per-clip arrays, leading dim T
+    session_id: Optional[str]
+    # The Session object captured at submit time: identity against the
+    # current mapping detects a chunk whose session was closed (and maybe
+    # reopened) while it was queued.
+    session: Optional["Session"] = None
+    future: Future = field(default_factory=Future)
+    signature: tuple = ()
+    enqueued_at: float = 0.0
+
+
+class Session:
+    """Recurrent state + ordering for one video stream."""
+
+    def __init__(self, session_id, state):
+        self.session_id = session_id
+        self.state = state  # host numpy tree, leading dim 1
+        self.chunks_processed = 0
+        self.last_used = time.monotonic()
+
+
+class ServingEngine:
+    """Micro-batching inference engine over one EVE model."""
+
+    def __init__(self, spec, params, *, device='cuda', artifact=None,
+                 max_batch=8, max_delay_ms=5.0,
+                 served_outputs=DEFAULT_SERVED_OUTPUTS,
+                 max_sessions=1024, max_signatures=8,
+                 max_queue=64, request_timeout_s=30.0,
+                 session_ttl_s=600.0, mesh=None, device_resident=False):
+        """``params`` is a state dict of the port's ``EVE`` model (see
+        ``eve_tpu_torch.utils.convert.eve_state_dict`` for eve_tpu trees).
+
+        ``served_outputs`` bounds what a dispatch copies back to the host
+        (None = every output). ``max_sessions`` and ``max_signatures`` bound
+        the open sessions and the distinct input (shape, dtype) signatures.
+        ``max_queue`` bounds pending requests (overflow raises
+        EngineOverloadedError); ``request_timeout_s`` fails requests that
+        waited longer in the queue. ``session_ttl_s``: sessions idle longer
+        are evicted on the next ``open_session`` (0 disables), floored at
+        2x ``request_timeout_s`` so a session with a queued chunk never
+        ages out.
+        """
+        for name, value in (('artifact', artifact), ('mesh', mesh),
+                            ('device_resident', device_resident or None)):
+            if value is not None:
+                raise NotImplementedError(
+                    '%s= serving is a later slice of the port; see '
+                    'ROADMAP.md' % name)
+        if spec is None or params is None:
+            raise ValueError('pass spec AND params (got spec=%s, params=%s)'
+                             % (type(spec).__name__, type(params).__name__))
+        # cuDNN runs float32 convolutions in TF32 by default, which keeps
+        # about three decimal digits; the port serves float32 and is held to
+        # eve_tpu's float32 results, so TF32 is off for convolutions and
+        # matrix products alike.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.spec = spec
+        self.device = torch.device(device)
+        self._model = eve_lib.build_model(
+            spec, {k: torch.as_tensor(v) for k, v in params.items()},
+            self.device)
+        self.max_batch = int(max_batch)
+        self.max_delay_s = float(max_delay_ms) / 1e3
+        self.served_outputs = (tuple(served_outputs)
+                               if served_outputs is not None else None)
+        self.max_sessions = int(max_sessions)
+        self.max_signatures = int(max_signatures)
+        self.request_timeout_s = float(request_timeout_s)
+        self.session_ttl_s = float(session_ttl_s)
+        if self.session_ttl_s:
+            self.session_ttl_s = max(self.session_ttl_s,
+                                     2.0 * self.request_timeout_s)
+        self._queue: "queue.Queue[_Request]" = queue.Queue(
+            maxsize=int(max_queue))
+        self._deferred: List[_Request] = []  # owned by the batcher thread
+        self._deferred_sessions = set()
+        # Session objects with a failed or expired chunk: their successors
+        # fail too. Objects, not ids, so a closed-and-reopened id starts
+        # clean. Mutated by the batcher and (on client timeouts) by caller
+        # threads; single set operations are atomic under the GIL.
+        self._broken_sessions = set()
+        self._sessions: Dict[str, Session] = {}
+        self._sessions_lock = threading.Lock()
+        self._zero_state = tree_map(
+            lambda t: t.numpy(), eve_lib.init_stream_state(spec, 1))
+        self._signatures = set()  # owned by the batcher thread
+        self._stats_lock = threading.Lock()
+        self.stats = {
+            'requests': 0, 'batches': 0, 'batched_slots': 0,
+            'errors': 0, 'sessions_opened': 0, 'sessions_evicted': 0,
+            'rejected': 0, 'timed_out': 0, 'rejected_draining': 0,
+        }
+        # Accepted-but-unresolved requests: incremented before the queue put
+        # and decremented exactly once when the future resolves, so drain()
+        # seeing 0 proves nothing accepted is pending.
+        self._inflight = 0
+        self._stop = threading.Event()
+        self._draining = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name='eve-serving-batcher')
+        self._thread.start()
+
+    # ---------------- public API ----------------
+
+    @property
+    def model(self):
+        """The served ``EVE`` module (eval mode, on ``self.device``)."""
+        return self._model
+
+    def open_session(self, session_id=None):
+        """Allocate fresh recurrent state; returns the session id."""
+        if self._draining.is_set():
+            self._stat_inc('rejected_draining')
+            raise EngineDrainingError(
+                'serving engine is draining for shutdown; no new sessions')
+        if self._stop.is_set():
+            raise RuntimeError('serving engine stopped')
+        session_id = session_id or uuid.uuid4().hex
+        evicted = 0
+        with self._sessions_lock:
+            if session_id in self._sessions:
+                raise ValueError('session exists: %s' % session_id)
+            if self.session_ttl_s:
+                # Reap abandoned streams before the capacity check.
+                cutoff = time.monotonic() - self.session_ttl_s
+                for sid in [sid for sid, s in self._sessions.items()
+                            if s.last_used < cutoff]:
+                    stale = self._sessions.pop(sid)
+                    self._broken_sessions.discard(stale)
+                    evicted += 1
+            if len(self._sessions) >= self.max_sessions:
+                raise RuntimeError(
+                    'session limit reached (%d); close unused sessions'
+                    % self.max_sessions)
+            self._sessions[session_id] = Session(
+                session_id, tree_map(np.copy, self._zero_state))
+        if evicted:
+            self._stat_inc('sessions_evicted', evicted)
+            logger.info('evicted %d idle session(s) past the %.0fs TTL',
+                        evicted, self.session_ttl_s)
+        self._stat_inc('sessions_opened')
+        return session_id
+
+    def _stat_inc(self, key, n=1):
+        with self._stats_lock:
+            self.stats[key] += n
+
+    def _resolve_request(self, r, result):
+        """Complete an accepted request (exactly-once in-flight release)."""
+        r.future.set_result(result)
+        with self._stats_lock:
+            self._inflight -= 1
+
+    def _fail_request(self, r, exc):
+        """Fail an accepted request; returns False if it already resolved."""
+        if r.future.done():
+            return False
+        r.future.set_exception(exc)
+        with self._stats_lock:
+            self._inflight -= 1
+        return True
+
+    def close_session(self, session_id):
+        with self._sessions_lock:
+            session = self._sessions.pop(session_id, None)
+        if session is not None:
+            self._broken_sessions.discard(session)
+
+    def submit(self, inputs, session_id=None) -> Future:
+        """Enqueue one clip (arrays with leading dim T); returns a Future.
+
+        The future resolves to the served output dict with per-sample arrays
+        (batch dim stripped). With a ``session_id`` the recurrent state is
+        carried from this session's previous chunk.
+        """
+        if self._draining.is_set():
+            self._stat_inc('rejected_draining')
+            raise EngineDrainingError(
+                'serving engine is draining for shutdown')
+        if self._stop.is_set():
+            raise RuntimeError('serving engine stopped')
+        session = None
+        if session_id is not None:
+            with self._sessions_lock:
+                session = self._sessions.get(session_id)
+                if session is not None:
+                    session.last_used = time.monotonic()
+            if session is None:
+                raise UnknownSessionError('unknown session: %s' % session_id)
+        req = _Request(inputs={k: np.asarray(v) for k, v in inputs.items()},
+                       session_id=session_id, session=session,
+                       enqueued_at=time.perf_counter())
+        req.signature = tuple(sorted(
+            (k, v.shape, str(v.dtype)) for k, v in req.inputs.items()))
+        with self._stats_lock:
+            self._inflight += 1
+        try:
+            self._queue.put_nowait(req)
+        except queue.Full:
+            with self._stats_lock:
+                self._inflight -= 1
+            self._stat_inc('rejected')
+            raise EngineOverloadedError(
+                'request queue full (%d pending); retry later'
+                % self._queue.maxsize)
+        if self._stop.is_set():
+            # stop() may have drained the queue before our put landed.
+            self._fail_queued(RuntimeError('serving engine stopped'))
+        return req.future
+
+    def infer(self, inputs, session_id=None, timeout=None):
+        """Blocking :meth:`submit`.
+
+        ``timeout=None`` waits ``request_timeout_s`` plus a 120 s allowance
+        for the first dispatch of a new shape. A client-side timeout marks
+        the session broken: the chunk may still run and advance the state.
+        """
+        if timeout is None:
+            timeout = self.request_timeout_s + 120.0
+        future = self.submit(inputs, session_id)
+        try:
+            return future.result(timeout=timeout)
+        except FuturesTimeoutError:
+            if session_id is not None:
+                with self._sessions_lock:
+                    session = self._sessions.get(session_id)
+                if session is not None:
+                    self._broken_sessions.add(session)
+            raise
+
+    def drain(self, timeout=None):
+        """Graceful shutdown: reject new work, finish accepted work, stop."""
+        self._draining.set()
+        if timeout is None:
+            timeout = self.request_timeout_s + 120.0
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            with self._stats_lock:
+                inflight = self._inflight
+            if inflight == 0:
+                break
+            time.sleep(0.02)
+        self.stop()
+
+    def stop(self):
+        """Stop the batcher and promptly fail all pending requests."""
+        self._stop.set()
+        self._thread.join(timeout=10.0)
+        err = RuntimeError('serving engine stopped')
+        for r in self._deferred:
+            self._fail_request(r, err)
+        self._deferred = []
+        self._deferred_sessions = set()
+        self._fail_queued(err)
+
+    def _fail_queued(self, err):
+        while True:
+            try:
+                r = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            self._fail_request(r, err)
+
+    def get_stats(self):
+        """Counters plus live queue/deferred depth (for monitoring)."""
+        with self._stats_lock:
+            out = dict(self.stats)
+            out['inflight'] = self._inflight
+        out['queue_depth'] = self._queue.qsize()
+        out['deferred'] = len(self._deferred)
+        out['draining'] = self._draining.is_set()
+        with self._sessions_lock:
+            out['sessions_open'] = len(self._sessions)
+        return out
+
+    # ---------------- batcher ----------------
+
+    def _loop(self):
+        while not self._stop.is_set():
+            reqs: List[_Request] = []
+            sessions_in_batch = set()
+            # Seed from deferred (oldest first), else block briefly.
+            pending, self._deferred = self._deferred, []
+            self._deferred_sessions = set()
+            for r in pending:
+                self._try_add(r, reqs, sessions_in_batch)
+            if not reqs:
+                try:
+                    first = self._queue.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+                self._try_add(first, reqs, sessions_in_batch)
+                if not reqs:
+                    continue
+            deadline = time.perf_counter() + self.max_delay_s
+            while len(reqs) < self.max_batch:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    r = self._queue.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                self._try_add(r, reqs, sessions_in_batch)
+            try:
+                self._dispatch(reqs)
+            except Exception as e:  # noqa: BLE001 - the batcher must survive
+                logger.exception('dispatch failed')
+                newly_failed = [r for r in reqs if not r.future.done()]
+                self._stat_inc('errors', len(newly_failed))
+                for r in newly_failed:
+                    self._fail_request(r, e)
+                # A session whose chunk failed must not continue from
+                # pre-failure state: fail its deferred successors too.
+                failed = {r.session for r in newly_failed
+                          if r.session is not None}
+                self._broken_sessions |= failed
+                if failed:
+                    keep = []
+                    for r in self._deferred:
+                        if r.session in failed:
+                            self._stat_inc('errors')
+                            self._fail_request(r, RuntimeError(
+                                'a previous chunk of session %s failed'
+                                % r.session_id))
+                        else:
+                            keep.append(r)
+                    self._deferred = keep
+                    self._deferred_sessions = {
+                        r.session_id for r in keep
+                        if r.session_id is not None}
+
+    def _try_add(self, r, reqs, sessions_in_batch):
+        """Add a request to the batch, or defer or expire it.
+
+        Defers when its session has an earlier chunk deferred, already has a
+        chunk in this batch, its signature differs from the batch head's, or
+        the batch is full. Requests older than ``request_timeout_s`` fail.
+        """
+        if r.session is not None:
+            with self._sessions_lock:
+                current = self._sessions.get(r.session_id) is r.session
+            if not current:
+                self._stat_inc('errors')
+                self._fail_request(r, UnknownSessionError(
+                    'session closed before dispatch: %s' % r.session_id))
+                return False
+            if r.session in self._broken_sessions:
+                self._stat_inc('errors')
+                self._fail_request(r, RuntimeError(
+                    'a previous chunk of session %s failed or expired; '
+                    'close the session and restart the stream'
+                    % r.session_id))
+                return False
+        if (time.perf_counter() - r.enqueued_at) > self.request_timeout_s:
+            self._stat_inc('errors')
+            self._stat_inc('timed_out')
+            self._fail_request(r, EngineOverloadedError(
+                'request waited > %.1fs in queue' % self.request_timeout_s))
+            if r.session is not None:
+                self._broken_sessions.add(r.session)
+            return False
+
+        def defer():
+            self._deferred.append(r)
+            if r.session_id is not None:
+                self._deferred_sessions.add(r.session_id)
+            return False
+
+        if r.session_id is not None and r.session_id in self._deferred_sessions:
+            return defer()
+        if reqs and r.signature != reqs[0].signature:
+            return defer()
+        if r.session_id is not None and r.session_id in sessions_in_batch:
+            return defer()
+        if len(reqs) >= self.max_batch:
+            return defer()
+        reqs.append(r)
+        if r.session_id is not None:
+            sessions_in_batch.add(r.session_id)
+        return True
+
+    def _check_signature(self, signature):
+        if signature not in self._signatures:
+            if len(self._signatures) >= self.max_signatures:
+                raise RuntimeError(
+                    'input-signature limit reached (%d distinct shapes); '
+                    'pad clips to a fixed shape client-side'
+                    % self.max_signatures)
+            self._signatures.add(signature)
+
+    def _run(self, batch, states):
+        """One padded forward; returns (served outputs, new states) on host."""
+        device = self.device
+        with torch.inference_mode():
+            out = self._model(
+                eve_lib.batch_to_tensors(batch, device),
+                output_predictions=True,
+                initial_states=tree_map(
+                    lambda x: torch.from_numpy(x).to(device), states),
+                return_states=True)
+            states_out = out.pop('states')
+            if self.served_outputs is not None:
+                out = {k: out[k] for k in self.served_outputs if k in out}
+            host = {k: v.cpu().numpy() for k, v in out.items()}
+            new_states = tree_map(lambda t: t.cpu().numpy(), states_out)
+        return host, new_states
+
+    def _dispatch(self, reqs: List[_Request]):
+        # A session closed between submit() and here fails its chunk instead
+        # of running on freshly zeroed state mid-stream.
+        live: List[_Request] = []
+        sessions: List[Optional[Session]] = []
+        dropped = 0
+        with self._sessions_lock:
+            for r in reqs:
+                if r.session is None:
+                    live.append(r)
+                    sessions.append(None)
+                elif self._sessions.get(r.session_id) is r.session:
+                    live.append(r)
+                    sessions.append(r.session)
+                else:
+                    dropped += 1
+                    self._fail_request(r, UnknownSessionError(
+                        'session closed before dispatch: %s' % r.session_id))
+        if dropped:
+            self._stat_inc('errors', dropped)
+        reqs = live
+        if not reqs:
+            return
+        self._check_signature(reqs[0].signature)
+        n = len(reqs)
+        pad = self.max_batch - n
+        slot_states = [s.state if s else self._zero_state for s in sessions]
+        slot_states += [self._zero_state] * pad
+        batch = {}
+        for k in reqs[0].inputs:
+            stacked = np.stack([r.inputs[k] for r in reqs])
+            if pad:
+                stacked = np.concatenate(
+                    [stacked, np.repeat(stacked[-1:], pad, axis=0)])
+            batch[k] = stacked
+        states = tree_map(lambda *xs: np.concatenate(xs, axis=0),
+                           *slot_states)
+        host, new_states = self._run(batch, states)
+
+        with self._sessions_lock:
+            for i, s in enumerate(sessions):
+                # The session may have been closed mid-flight.
+                if s is not None and self._sessions.get(s.session_id) is s:
+                    s.state = tree_map(lambda x: np.copy(x[i:i + 1]),
+                                        new_states)
+                    s.chunks_processed += 1
+                    s.last_used = time.monotonic()
+        for i, r in enumerate(reqs):
+            per_sample = {}
+            for k, v in host.items():
+                if v.ndim >= 1 and v.shape[0] == self.max_batch:
+                    per_sample[k] = v[i]
+                elif v.ndim == 0:
+                    per_sample[k] = v
+            self._resolve_request(r, per_sample)
+        with self._stats_lock:
+            self.stats['requests'] += n
+            self.stats['batches'] += 1
+            self.stats['batched_slots'] += n
+
+
+# ----------------------------------------------------------------------
+# HTTP front end (stdlib only; npz bodies)
+# ----------------------------------------------------------------------
+
+def _npz_bytes(arrays):
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def _npz_parse(body):
+    with np.load(io.BytesIO(body), allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def make_http_server(engine: ServingEngine, host='127.0.0.1', port=0,
+                     served_outputs=None,
+                     max_body_bytes=256 * 1024 * 1024,
+                     keepalive_timeout_s=15.0):
+    """Build a ``ThreadingHTTPServer`` exposing the engine.
+
+    Routes:
+      GET  /healthz                      -> {"status": "ok"} (503 draining)
+      GET  /v1/stats                     -> engine stats JSON
+      POST /v1/sessions                  -> {"session_id": ...}
+      DELETE /v1/sessions/<id>           -> {}
+      POST /v1/infer  (npz body; optional X-Session-Id header)
+           -> npz of served output arrays
+
+    413 for bodies over ``max_body_bytes`` (refused before reading), 429 +
+    Retry-After when the queue is full or the request timed out, 503 while
+    draining. ``keepalive_timeout_s`` bounds how long a handler thread
+    blocks on an idle keep-alive connection.
+    """
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = 'HTTP/1.1'
+        timeout = float(keepalive_timeout_s)
+
+        def log_message(self, fmt, *args):
+            logger.debug('http: ' + fmt, *args)
+
+        def _json(self, code, obj):
+            self._bytes(code, json.dumps(obj).encode(), 'application/json')
+
+        def _bytes(self, code, body, ctype='application/octet-stream',
+                   headers=()):
+            self.send_response(code)
+            self.send_header('Content-Type', ctype)
+            self.send_header('Content-Length', str(len(body)))
+            for name, value in headers:
+                self.send_header(name, value)
+            if self.close_connection:
+                self.send_header('Connection', 'close')
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == '/healthz':
+                if engine._draining.is_set():
+                    self._json(503, {'status': 'draining'})
+                else:
+                    self._json(200, {'status': 'ok'})
+            elif self.path == '/v1/stats':
+                self._json(200, engine.get_stats())
+            else:
+                self._json(404, {'error': 'not found'})
+
+        def do_POST(self):
+            try:
+                if self.path == '/v1/sessions':
+                    self._json(200, {'session_id': engine.open_session()})
+                    return
+                if self.path == '/v1/infer':
+                    # A refusal before the body is read closes the
+                    # connection: leftover bytes would parse as the next
+                    # request on a keep-alive stream.
+                    if 'chunked' in (self.headers.get('Transfer-Encoding')
+                                     or '').lower():
+                        self.close_connection = True
+                        self._json(411, {
+                            'error': 'chunked bodies unsupported; send '
+                                     'Content-Length'})
+                        return
+                    raw_length = self.headers.get('Content-Length')
+                    if raw_length is None or not raw_length.strip().isdigit():
+                        self.close_connection = True
+                        self._json(411 if raw_length is None else 400, {
+                            'error': 'missing or malformed Content-Length'})
+                        return
+                    length = int(raw_length)
+                    if length > max_body_bytes:
+                        self.close_connection = True
+                        self._json(413, {
+                            'error': 'body of %d bytes exceeds limit %d'
+                                     % (length, max_body_bytes)})
+                        return
+                    inputs = _npz_parse(self.rfile.read(length))
+                    sid = self.headers.get('X-Session-Id') or None
+                    out = engine.infer(inputs, session_id=sid)
+                    keys = (served_outputs if served_outputs is not None
+                            else engine.served_outputs)
+                    served = out if keys is None else {
+                        k: out[k] for k in keys if k in out}
+                    self._bytes(200, _npz_bytes(served))
+                    return
+                self._json(404, {'error': 'not found'})
+            except UnknownSessionError as e:
+                self._json(404, {'error': str(e)})
+            except EngineDrainingError as e:
+                self.close_connection = True
+                self._json(503, {'error': str(e)})
+            except EngineOverloadedError as e:
+                self._bytes(429, json.dumps({'error': str(e)}).encode(),
+                            'application/json', (('Retry-After', '1'),))
+            except Exception as e:  # noqa: BLE001 - answer, never hang up
+                logger.exception('request failed')
+                # The body may not have been fully read: never reuse this
+                # connection.
+                self.close_connection = True
+                self._json(500, {'error': repr(e)})
+
+        def do_DELETE(self):
+            prefix = '/v1/sessions/'
+            if self.path.startswith(prefix):
+                engine.close_session(self.path[len(prefix):])
+                self._json(200, {})
+            else:
+                self._json(404, {'error': 'not found'})
+
+    return ThreadingHTTPServer((host, port), Handler)
