@@ -7,17 +7,22 @@
    versions); exits non-zero without a card.
 2. Builds the CUDA kernels from ``eve_tpu_torch/csrc`` with nvcc.
 3. Kernel phase: holds each kernel against its plain PyTorch version on the
-   card (render at N=80 and 240 for sigma 10, 3, 5; soft-argmax at N=0, 1,
-   17, 80, 240 in float32 and bfloat16; one backward through each
-   ``autograd.Function``) and times both at the serving path's shapes.
+   card at N=0, 1, 17, 80, 240 (render for sigma 10, 3, 5 one at a time
+   and all three with a validity mask in one launch; soft-argmax of 72x128
+   maps in float32 and bfloat16, and of 144x256 maps at N=1, 17, 80; one
+   backward through each ``autograd.Function``). Times both at the serving
+   path's shapes (render also at S=3) beside an empty kernel of the same
+   launch shape, the launch floor.
 4. Serve phase: the full-width ``configs/refine_net.json`` model (128x128
    eyes, CLSTM RefineNet, screen content) on seeded random weights, behind
    ``ServingEngine(device='cuda', max_batch=8)``: 8 sessions x 3 consecutive
    T=10 chunks plus 2 session-less requests, uint8 frames as a client sends
    them, one request over HTTP. Checks finite outputs of the right shapes,
-   that both kernels launched on every dispatch, that each session's chunks
+   that each kernel launched once a dispatch, that each session's chunks
    equal one T=30 forward, and that one clip on the card matches the port's
-   CPU forward; then profiles one serving-shaped forward (torch.profiler).
+   CPU forward; then profiles one serving-shaped forward (torch.profiler)
+   and runs one forward with ground-truth labels (B=8, T=10), which must
+   launch the render twice and derive the CPU's labels.
 5. Prints the kernel table as one JSON line, the card, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -59,6 +64,8 @@ CPU_PX_ATOL = 5e-2
 OTHER_ATOL = 1e-3
 
 SESSIONS, CHUNKS, T, MAX_BATCH = 8, 3, 10, 8
+# Map counts the kernel phase holds the kernels at (80 = the serving shape).
+KERNEL_NS = (0, 1, 17, 80, 240)
 
 
 def log(*args):
@@ -107,102 +114,216 @@ def assert_close(a, b, what, **tol):
 # Kernel phase
 # ---------------------------------------------------------------------------
 
+def _centres(gen, n, dev):
+    return torch.from_numpy(np.stack([
+        gen.uniform(-50, 1970, n), gen.uniform(-50, 1130, n)],
+        -1).astype(np.float32)).to(dev)
+
+
+def _masked_centres(gen, n, dev):
+    """Centres and a 0/1 mask; the first centre is NaN under a 0."""
+    c = _centres(gen, n, dev)
+    mask = torch.from_numpy((gen.uniform(size=n) > 0.3).astype(
+        np.float32)).to(dev)
+    if n:
+        c[0] = float('nan')
+        mask[0] = 0.0
+    return c, mask
+
+
+def _peaked_maps(gen, n, h, w, dev):
+    """Uniform noise plus a bump per map, as a refined heatmap has."""
+    x = torch.from_numpy(gen.uniform(0, 1, (n, h, w)).astype(
+        np.float32)).to(dev)
+    yy, xx = torch.meshgrid(torch.arange(float(h), device=dev),
+                            torch.arange(float(w), device=dev),
+                            indexing='ij')
+    cy = torch.from_numpy(gen.uniform(0, h, (n, 1, 1))).float().to(dev)
+    cx = torch.from_numpy(gen.uniform(0, w, (n, 1, 1))).float().to(dev)
+    scale = 50.0 * (h * w) / (72 * 128)
+    return x + 0.5 * torch.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / scale)
+
+
 def kernel_phase(hk):
     gen = np.random.RandomState(0)
     dev = 'cuda'
     errs = {'render_heatmaps': 0.0, 'soft_argmax': 0.0}
-    for n in (80, 240):
-        c = torch.from_numpy(np.stack([
-            gen.uniform(-50, 1970, n), gen.uniform(-50, 1130, n)],
-            -1).astype(np.float32)).to(dev)
-        for sigma in (10.0, 3.0, 5.0):
-            ours = hk.render_heatmaps(c, sigma)
+    sigmas = (10.0, 3.0, 5.0)
+    for n in KERNEL_NS:
+        c = _centres(gen, n, dev)
+        for sigma in sigmas:
+            ours = hk.render_heatmaps(c, (sigma,))
             ref = hk.make_heatmaps_plain(c, sigma)
             torch.cuda.synchronize()
-            assert_close(ours, ref, 'render N=%d sigma=%g' % (n, sigma),
+            assert ours.shape == (1, n, 72, 128)
+            assert_close(ours[0], ref, 'render N=%d sigma=%g' % (n, sigma),
                          **RENDER_TOL)
             errs['render_heatmaps'] = max(errs['render_heatmaps'],
-                                          max_err(ours, ref))
-    for n in (0, 1, 17, 80, 240):
-        x = torch.from_numpy(gen.uniform(0, 1, (n, 72, 128)).astype(
-            np.float32)).to(dev)
-        # A bump per map, as a refined heatmap has.
-        yy, xx = torch.meshgrid(torch.arange(72.0, device=dev),
-                                torch.arange(128.0, device=dev),
-                                indexing='ij')
-        cy = torch.from_numpy(gen.uniform(0, 72, (n, 1, 1))).float().to(dev)
-        cx = torch.from_numpy(gen.uniform(0, 128, (n, 1, 1))).float().to(dev)
-        x = x + 0.5 * torch.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 50.0)
+                                          max_err(ours[0], ref))
+        # The label path's form: three sigmas and a validity mask, one
+        # launch; the NaN centre under mask 0 stays NaN, as hm * mask does.
+        cm, mask = _masked_centres(gen, n, dev)
+        ours = hk.render_heatmaps(cm, sigmas, mask)
+        ref = hk.make_heatmaps_multi_plain(cm, sigmas, mask)
+        torch.cuda.synchronize()
+        assert ours.shape == (3, n, 72, 128)
+        assert_close(ours, ref, 'render S=3 masked N=%d' % n,
+                     equal_nan=True, **RENDER_TOL)
+        if n:
+            assert bool(torch.isnan(ours[:, 0]).all())
+            errs['render_heatmaps'] = max(errs['render_heatmaps'],
+                                          max_err(ours[:, 1:], ref[:, 1:]))
+    for n, (h, w) in [(n, (72, 128)) for n in KERNEL_NS] + [
+            (n, (144, 256)) for n in (1, 17, 80)]:
+        x = _peaked_maps(gen, n, h, w, dev)
         for dtype in (torch.float32, torch.bfloat16):
             xd = x.to(dtype).contiguous()
-            ours = hk.soft_argmax(xd)
-            ref = hk.soft_argmax_plain(xd)
+            ours = hk.soft_argmax(xd, heatmap_size=(w, h))
+            ref = hk.soft_argmax_plain(xd, heatmap_size=(w, h))
             torch.cuda.synchronize()
             assert ours.shape == (n, 2) and ours.dtype == torch.float32
-            assert_close(ours, ref, 'soft_argmax N=%d %s' % (n, dtype),
-                         **SOFTARGMAX_TOL)
+            assert_close(ours, ref, 'soft_argmax N=%d %dx%d %s'
+                         % (n, h, w, dtype), **SOFTARGMAX_TOL)
             errs['soft_argmax'] = max(errs['soft_argmax'], max_err(ours, ref))
 
     # One backward through each autograd.Function, against autograd of the
     # plain version on the same inputs.
     c = torch.from_numpy(gen.uniform(0, 1900, (80, 2)).astype(
         np.float32)).to(dev)
-    g = torch.randn((80, 72, 128), device=dev,
+    mask = (torch.arange(80, device=dev) % 3 != 0).float()
+    g = torch.randn((3, 80, 72, 128), device=dev,
                     generator=torch.Generator(dev).manual_seed(0))
     ci = c.clone().requires_grad_(True)
-    hk.RenderHeatmaps.apply(ci, 10.0, (128, 72), (1920.0, 1080.0)).backward(g)
+    hk.RenderHeatmaps.apply(ci, sigmas, mask, (128, 72),
+                            (1920.0, 1080.0)).backward(g)
     cr = c.clone().requires_grad_(True)
-    hk.make_heatmaps_plain(cr, 10.0).backward(g)
+    hk.make_heatmaps_multi_plain(cr, sigmas, mask).backward(g)
     assert_close(ci.grad, cr.grad, 'render backward', rtol=1e-4, atol=1e-6)
-    xi = x[:80].clone().requires_grad_(True)
+    x = _peaked_maps(gen, 80, 72, 128, dev)
+    xi = x.clone().requires_grad_(True)
     gp = torch.randn((80, 2), device=dev,
                      generator=torch.Generator(dev).manual_seed(1))
     hk.SoftArgmax.apply(xi, (128, 72), (1920.0, 1080.0), 100.0).backward(gp)
-    xr = x[:80].clone().requires_grad_(True)
+    xr = x.clone().requires_grad_(True)
     hk.soft_argmax_plain(xr).backward(gp)
     assert_close(xi.grad, xr.grad, 'soft_argmax backward', rtol=1e-4,
                  atol=1e-4 * float(xr.grad.abs().max()))
-    log('kernel phase: kernels match their plain versions; max abs err '
-        'render %.3g, soft-argmax %.3g px' % (errs['render_heatmaps'],
-                                               errs['soft_argmax']))
+    log('kernel phase: kernels match their plain versions at N=%s (render '
+        'S=1 and S=3 masked; soft-argmax 72x128 and 144x256); max abs err '
+        'render %.3g, soft-argmax %.3g px'
+        % (list(KERNEL_NS), errs['render_heatmaps'], errs['soft_argmax']))
     return errs
 
 
+def _bound(nbytes, ops):
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            'bytes' if bytes_ms >= ops_ms else 'operations')
+
+
 def kernel_timings(hk, n):
-    """Kernel, plain and bound times at the serving path's N maps."""
+    """Kernel, plain, bound and launch-floor times at the serving N maps.
+
+    The launch floor is an empty kernel at the same grid (and cluster)
+    shape, timed in the same 50-launch chain: the least any kernel of that
+    shape takes here. The chains re-read inputs that sit in the 50 MB L2,
+    as the real caller finds them, so a time under the HBM-byte bound is
+    L2's doing.
+    """
     gen = np.random.RandomState(1)
+    dev = torch.device('cuda', torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     c = torch.from_numpy(gen.uniform(0, 1900, (n, 2)).astype(
+        np.float32)).cuda()
+    mask = torch.from_numpy((gen.uniform(size=n) > 0.1).astype(
         np.float32)).cuda()
     x = torch.from_numpy(gen.uniform(0, 1, (n, 72, 128)).astype(
         np.float32)).cuda()
     pixels = n * 72 * 128
+    sigmas = (10.0, 3.0, 5.0)
+    render_ctas = n * -(-72 // hk.render_rows(1, n, 72, sms))
+    render3_ctas = 3 * n * -(-72 // hk.render_rows(3, n, 72, sms))
+    cluster = hk.soft_argmax_cluster_size(n, 72 * 128 // 4, sms)
     rows = {}
-    # Render: reads the centres, writes the maps; ~6 float32 operations a
-    # pixel (subtract, square, add, scale, exp, add).
-    render_bytes = n * 2 * 4 + pixels * 4
-    render_ops = 6 * pixels
+    # Render: reads the centres (and the mask), writes the maps; ~6 float32
+    # operations a pixel (subtract, square, add, scale, exp, add), one more
+    # with the mask.
     # Soft-argmax: reads the maps, writes (N, 2); ~9 operations a pixel
     # (max, subtract, scale, exp, three multiply-adds).
-    sam_bytes = pixels * 4 + n * 2 * 4
-    sam_ops = 9 * pixels
-    for name, fn, plain, nbytes, ops in (
-            ('render_heatmaps', lambda: hk.render_heatmaps(c, 10.0),
-             lambda: hk.make_heatmaps_plain(c, 10.0), render_bytes,
-             render_ops),
+    for name, fn, plain, nbytes, ops, floor in (
+            ('render_heatmaps', lambda: hk.render_heatmaps(c, (10.0,)),
+             lambda: hk.make_heatmaps_plain(c, 10.0),
+             n * 2 * 4 + pixels * 4, 6 * pixels,
+             lambda: hk.launch_empty_kernel(render_ctas, 1, dev)),
+            ('render_heatmaps_s3',
+             lambda: hk.render_heatmaps(c, sigmas, mask),
+             lambda: hk.make_heatmaps_multi_plain(c, sigmas, mask),
+             n * 3 * 4 + 3 * pixels * 4, 3 * 7 * pixels,
+             lambda: hk.launch_empty_kernel(render3_ctas, 1, dev)),
             ('soft_argmax', lambda: hk.soft_argmax(x),
-             lambda: hk.soft_argmax_plain(x), sam_bytes, sam_ops)):
-        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
+             lambda: hk.soft_argmax_plain(x), pixels * 4 + n * 2 * 4,
+             9 * pixels,
+             lambda: hk.launch_empty_kernel(n * cluster, cluster, dev))):
+        bound_ms, bound_by = _bound(nbytes, ops)
         rows[name] = {
             'ms': time_gpu(fn), 'plain_ms': time_gpu(plain),
-            'bound_ms': max(bytes_ms, ops_ms),
-            'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
-            'library_ms': None,
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
+            'launch_floor_ms': time_gpu(floor),
         }
-        log('%s N=%d: kernel %.5f ms, plain %.5f ms, bound %.5f ms (%s)'
-            % (name, n, rows[name]['ms'], rows[name]['plain_ms'],
-               rows[name]['bound_ms'], rows[name]['bound_by']))
+        log('%s N=%d: kernel %.5f ms, plain %.5f ms, bound %.5f ms (%s), '
+            'launch floor %.5f ms' % (
+                name, n, rows[name]['ms'], rows[name]['plain_ms'],
+                rows[name]['bound_ms'], rows[name]['bound_by'],
+                rows[name]['launch_floor_ms']))
+    log('launch shapes: render %d CTAs (S=1), %d CTAs (S=3); soft-argmax '
+        '%d CTAs in clusters of %d; %d SMs'
+        % (render_ctas, render3_ctas, n * cluster, cluster, sms))
     return rows
+
+
+def labelled_forward_phase(hk, model, spec):
+    """A forward with ground-truth PoG on the card: the render launches
+    twice (the initial estimate, S=1; the three label sigmas with their
+    validity mask, S=3), and the labels equal the port's CPU labels."""
+    from eve_tpu_torch.data.synthetic import make_synthetic_batch
+    from eve_tpu_torch.models import eve as eve_lib
+    batch = make_synthetic_batch(np.random.RandomState(3),
+                                 batch_size=SESSIONS, sequence_len=T,
+                                 eyes_size=128, frame_dtype=np.uint8)
+    batch['left_PoG_tobii_validity'][0, 1] = 0
+    batch['right_PoG_tobii_validity'][2, 5] = 0
+    gpu_batch = eve_lib.batch_to_tensors(batch, 'cuda')
+    with torch.inference_mode():
+        model(gpu_batch, output_predictions=True)  # warm-up
+        torch.cuda.synchronize()
+        hk.reset_launch_counts()
+        out = model(gpu_batch, output_predictions=True)
+        torch.cuda.synchronize()
+        launches = dict(hk.LAUNCHES)
+        gpu_labels = eve_lib.calculate_additional_labels(spec, gpu_batch)
+        cpu_labels = eve_lib.calculate_additional_labels(
+            spec, eve_lib.batch_to_tensors(batch, 'cpu'))
+    log('labelled forward B=%d T=%d: kernel launches %s'
+        % (SESSIONS, T, launches))
+    if launches != {'render_heatmaps': 2, 'soft_argmax': 1}:
+        raise AssertionError('labelled forward launched %s, want 2 renders '
+                             'and 1 soft-argmax' % launches)
+    for k in ('full_loss', 'loss_ce_heatmap_final', 'PoG_px_final'):
+        if k in out and not bool(torch.isfinite(out[k]).all()):
+            raise AssertionError('labelled forward: %s is not finite' % k)
+    errs = {}
+    for k, v in cpu_labels.items():
+        got = gpu_labels[k].cpu()
+        if k.startswith('heatmap') and not k.endswith('validity'):
+            assert_close(got, v, 'label %s card vs CPU' % k, **RENDER_TOL)
+        else:
+            assert_close(got, v, 'label %s card vs CPU' % k, rtol=1e-5,
+                         atol=1e-5)
+        errs[k] = max_err(got, v)
+    log('labelled forward: %d labels match the CPU labels, max abs err '
+        'heatmaps %.3g' % (len(errs), max(v for k, v in errs.items()
+                                         if k.startswith('heatmap'))))
 
 
 # ---------------------------------------------------------------------------
@@ -398,10 +519,10 @@ def serve_phase(hk):
         log('serve: kernel launches %s over %d dispatches'
             % (launches, dispatches))
         for name in ('render_heatmaps', 'soft_argmax'):
-            if launches[name] < dispatches or dispatches == 0:
+            if launches[name] != dispatches or dispatches == 0:
                 raise AssertionError(
-                    '%s launched %d times over %d dispatches'
-                    % (name, launches[name], dispatches))
+                    '%s launched %d times over %d dispatches, want one '
+                    'launch a dispatch' % (name, launches[name], dispatches))
         for key, out in results.items():
             check_outputs(out, T, 'request %s' % (key,))
         for k in ('PoG_px_initial', 'PoG_px_final'):
@@ -433,6 +554,7 @@ def serve_phase(hk):
             % json.dumps(cpu_errs))
         profile_forward(model, [{k: v[:T] for k, v in st.items()}
                                 for st in streams])
+        labelled_forward_phase(hk, model, spec)
         return launches
     finally:
         server.shutdown()
@@ -478,6 +600,7 @@ def main():
                      'launches': launches[name],
                      'max_abs_err': errs[name]}, **timings[name])
                for name in ('render_heatmaps', 'soft_argmax')]
+    kernels[0]['s3'] = timings['render_heatmaps_s3']
     log(json.dumps({'kernels': kernels}))
     log('card:', card_line())
     log(json.dumps({'ok': True, 'device': {

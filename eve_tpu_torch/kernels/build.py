@@ -3,10 +3,10 @@
 Each source under ``eve_tpu_torch/csrc/`` is compiled by ``nvcc`` into a
 shared library with a plain C interface and loaded with ``ctypes``. The
 library is built at first use into ``build/eve_tpu_torch/`` beside the
-package (or ``$EVE_TORCH_BUILD_DIR``), under a name keyed on the hash of the
-source and the flags, so an edited source rebuilds. The build writes a
-temporary file and renames it into place, so processes that build at the
-same time never load a partial library.
+package (or ``$EVE_TORCH_BUILD_DIR``), under a name keyed on the hash of
+every file under ``csrc/`` and the flags, so an edited source or header
+rebuilds. The build writes a temporary file and renames it into place, so
+processes that build at the same time never load a partial library.
 
 Nothing here runs at import: the CPU tests import every module on hosts
 without ``nvcc`` or a card.
@@ -55,9 +55,18 @@ def find_nvcc():
 
 
 def library_path(name):
-    """Where the library built from ``csrc/<name>.cu`` goes."""
-    with open(os.path.join(CSRC_DIR, name + '.cu'), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    """Where the library built from ``csrc/<name>.cu`` goes.
+
+    The name is keyed on every file under ``csrc/`` (names and contents)
+    and the flags, so an edited header rebuilds the libraries that may
+    include it.
+    """
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for fname in sorted(os.listdir(CSRC_DIR)):
+        path = os.path.join(CSRC_DIR, fname)
+        if os.path.isfile(path):
+            with open(path, 'rb') as f:
+                digest.update(b'\0' + fname.encode() + b'\0' + f.read())
     return os.path.join(build_dir(),
                         '%s-%s.so' % (name, digest.hexdigest()[:16]))
 

@@ -340,7 +340,8 @@ def build_model(spec, state_dict, device='cuda'):
 def calculate_additional_labels(spec, batch):
     """Derive the labels eve_tpu computes on the fly (inference half).
 
-    The ground-truth heatmaps go through the render kernel on the card.
+    The ground-truth heatmaps go through one launch of the render kernel on
+    the card, all three sigmas and the validity mask at once.
     """
     labels = {}
     mm_per_px = batch.get('millimeters_per_pixel')
@@ -365,16 +366,18 @@ def calculate_additional_labels(spec, batch):
         labels['PoG_cm_tobii_validity'] = validity
 
         if spec.refine_net_enabled:
-            vmask = validity.float()[..., None, None]
-            for name, sigma in (
-                    ('heatmap_initial', spec.gaze_heatmap_sigma_initial),
-                    ('heatmap_history', spec.gaze_heatmap_sigma_history),
-                    ('heatmap_final', spec.gaze_heatmap_sigma_final)):
-                hm = hm_ops.make_heatmaps_fast(
-                    labels['PoG_px_tobii'], sigma,
-                    heatmap_size=spec.gaze_heatmap_size,
-                    actual_screen_size=spec.actual_screen_size)
-                labels[name] = hm * vmask
+            # The three ground-truth sigmas, masked, in one render launch.
+            names = ('heatmap_initial', 'heatmap_history', 'heatmap_final')
+            maps = hm_ops.make_heatmaps_multi_fast(
+                labels['PoG_px_tobii'],
+                (spec.gaze_heatmap_sigma_initial,
+                 spec.gaze_heatmap_sigma_history,
+                 spec.gaze_heatmap_sigma_final),
+                multiplier=validity.float(),
+                heatmap_size=spec.gaze_heatmap_size,
+                actual_screen_size=spec.actual_screen_size)
+            for name, hm in zip(names, maps):
+                labels[name] = hm
                 labels[name + '_validity'] = validity
 
     if 'PoG_cm_tobii' in labels:

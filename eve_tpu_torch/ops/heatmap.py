@@ -3,9 +3,11 @@
 The counterpart of ``eve_tpu/ops/heatmap.py``. The plain versions
 (``make_heatmaps``, ``soft_argmax``) are the ones beside the kernels in
 ``eve_tpu_torch/kernels/heatmap_kernels.py``. The dispatchers
-``make_heatmaps_fast`` / ``soft_argmax_fast`` take any leading dims: on a
-CUDA tensor they go through the kernel's ``autograd.Function``, on a CPU
-tensor through the plain version. There is no switch.
+``make_heatmaps_multi_fast`` / ``make_heatmaps_fast`` / ``soft_argmax_fast``
+take any leading dims: on a CUDA tensor they go through the kernel's
+``autograd.Function``, on a CPU tensor through the plain version. There is
+no switch. The multi-sigma form renders several sigmas, optionally times a
+per-centre mask, in one launch.
 
 ``history_update`` / ``decayed_history_scan`` are the O(T) recurrence
 H_t = decay^dt * H_{t-1} + valid_t * h_t, with zero-timestamp (padded)
@@ -16,10 +18,11 @@ import torch
 
 from eve_tpu_torch.kernels.heatmap_kernels import (
     HEATMAP_H, HEATMAP_W, SCREEN_SIZE, SOFTARGMAX_BETA, RenderHeatmaps,
-    SoftArgmax, make_heatmaps_plain as make_heatmaps,
-    soft_argmax_plain as soft_argmax)
+    SoftArgmax, make_heatmaps_multi_plain as make_heatmaps_multi,
+    make_heatmaps_plain as make_heatmaps, soft_argmax_plain as soft_argmax)
 
-__all__ = ['make_heatmaps', 'soft_argmax', 'make_heatmaps_fast',
+__all__ = ['make_heatmaps', 'make_heatmaps_multi', 'soft_argmax',
+           'make_heatmaps_multi_fast', 'make_heatmaps_fast',
            'soft_argmax_fast', 'history_update', 'decayed_history_scan']
 
 
@@ -65,17 +68,31 @@ def decayed_history_scan(heatmaps, timestamps, validities, decay_per_ms=0.999):
     return torch.stack(out, dim=1)
 
 
+def make_heatmaps_multi_fast(centres_px, sigmas, multiplier=None,
+                             heatmap_size=(HEATMAP_W, HEATMAP_H),
+                             actual_screen_size=SCREEN_SIZE):
+    """(..., 2) centres -> (S, ..., H, W), one render launch on the card.
+
+    ``multiplier`` (shape ``centres_px.shape[:-1]``), if given, multiplies
+    each centre's maps, as a validity mask does.
+    """
+    if centres_px.device.type != 'cuda':
+        return make_heatmaps_multi(centres_px, sigmas, multiplier,
+                                   heatmap_size, actual_screen_size)
+    lead = centres_px.shape[:-1]
+    flat = centres_px.reshape(-1, 2).float().contiguous()
+    if multiplier is not None:
+        multiplier = multiplier.reshape(-1).float().contiguous()
+    out = RenderHeatmaps.apply(flat, tuple(sigmas), multiplier,
+                               tuple(heatmap_size), tuple(actual_screen_size))
+    return out.reshape((out.shape[0],) + lead + out.shape[2:])
+
+
 def make_heatmaps_fast(centres_px, sigma, heatmap_size=(HEATMAP_W, HEATMAP_H),
                        actual_screen_size=SCREEN_SIZE):
     """``make_heatmaps`` through the render kernel on a CUDA tensor."""
-    if centres_px.device.type != 'cuda':
-        return make_heatmaps(centres_px, sigma, heatmap_size,
-                             actual_screen_size)
-    lead = centres_px.shape[:-1]
-    flat = centres_px.reshape(-1, 2).float().contiguous()
-    out = RenderHeatmaps.apply(flat, sigma, tuple(heatmap_size),
-                               tuple(actual_screen_size))
-    return out.reshape(lead + out.shape[1:])
+    return make_heatmaps_multi_fast(centres_px, (sigma,), None, heatmap_size,
+                                    actual_screen_size)[0]
 
 
 def soft_argmax_fast(heatmaps, heatmap_size=(HEATMAP_W, HEATMAP_H),

@@ -121,6 +121,28 @@ def test_forward_matches_eve_tpu(specs, params, model, frame_dtype):
             err_msg=key, **_tolerance(key))
 
 
+def test_labels_match_eve_tpu_with_invalid_frames(specs):
+    """The masked ground-truth heatmaps (one multi-sigma render) and the
+    other derived labels equal eve_tpu's, invalid frames included."""
+    batch = _batch(3)
+    batch['left_PoG_tobii_validity'][0, 1] = 0
+    batch['right_PoG_tobii_validity'][1, 2] = 0
+    ref = {k: np.asarray(v) for k, v in jeve.calculate_additional_labels(
+        specs[0], batch, None, False).items()}
+    ours = teve.calculate_additional_labels(
+        specs[1], teve.batch_to_tensors(batch, 'cpu'))
+    assert set(ref) <= set(ours)
+    for key in sorted(ref):
+        np.testing.assert_allclose(
+            ours[key].numpy().astype(ref[key].dtype), ref[key], err_msg=key,
+            rtol=1e-6 if key.startswith('heatmap') else 1e-4,
+            atol=1e-7 if key.startswith('heatmap') else 1e-4)
+    for name in ('heatmap_initial', 'heatmap_history', 'heatmap_final'):
+        assert ours[name].shape == (2, 3, 72, 128)
+        assert not ours[name][0, 1].any() and not ours[name][1, 2].any()
+        assert ours[name][0, 0].min() > 0
+
+
 def test_streaming_two_chunks_equals_one_clip(specs, model):
     batch = _batch(2, T=3)
     whole = _port_forward(model, batch)

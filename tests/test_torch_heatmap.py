@@ -4,8 +4,11 @@ The port's plain render and soft-argmax (the versions its CUDA kernels are
 held against on the card) must match eve_tpu's jnp formulations and its
 Pallas kernels run in interpret mode, in value and in gradient. On a CPU
 tensor the wrappers and ``autograd.Function``s take the plain path and
-launch nothing. The kernels themselves run only on the card (``cuda``
-marker; ``chip_smoke.py`` holds them against the plain versions there).
+launch nothing. The multi-sigma render (three sigmas and a validity mask
+in one launch) and the soft-argmax of 144 x 256 maps are held against
+eve_tpu the same way. The kernels themselves run only on the card
+(``cuda`` marker; ``chip_smoke.py`` holds them against the plain versions
+there).
 """
 
 import numpy as np
@@ -99,7 +102,7 @@ def test_render_grad_matches_jax_vjp():
     (ref,) = vjp(jnp.asarray(g))
     for fn in (lambda x: thm.make_heatmaps(x, 10.0),
                lambda x: tkern.RenderHeatmaps.apply(
-                   x, 10.0, (128, 72), (1920.0, 1080.0))):
+                   x, (10.0,), None, (128, 72), (1920.0, 1080.0))[0]):
         ct = torch.from_numpy(c).requires_grad_(True)
         (ours,) = torch.autograd.grad(fn(ct), ct, torch.from_numpy(g))
         np.testing.assert_allclose(ours.numpy(), np.asarray(ref),
@@ -167,23 +170,168 @@ def test_library_name_is_keyed_on_source(tmp_path, monkeypatch):
     src.mkdir()
     (src / 'heatmap_kernels.cu').write_text('// edited\n')
     monkeypatch.setattr(build, 'CSRC_DIR', str(src))
-    assert build.library_path('heatmap_kernels') != path
+    edited = build.library_path('heatmap_kernels')
+    assert edited != path
+    # A header beside the source is part of the key: adding or editing one
+    # rebuilds, and an unchanged tree keeps its name.
+    (src / 'hopper_async.cuh').write_text('#pragma once\n')
+    with_header = build.library_path('heatmap_kernels')
+    assert with_header != edited
+    assert build.library_path('heatmap_kernels') == with_header
+    (src / 'hopper_async.cuh').write_text('#pragma once\n// edited\n')
+    assert build.library_path('heatmap_kernels') != with_header
+
+
+def _masked_centres(n, seed=5):
+    """Centres with a 0/1 mask; one NaN centre sits under a 0."""
+    c = _centres(n, seed)
+    mask = (np.random.RandomState(seed + 1).uniform(size=n) > 0.3).astype(
+        np.float32)
+    if n:
+        mask[0] = 0.0
+        c[0] = np.nan
+    return c, mask
+
+
+@pytest.mark.parametrize('n', [0, 1, 17])
+def test_multi_sigma_render_with_mask_matches_eve_tpu(n):
+    sigmas = (10.0, 3.0, 5.0)
+    c, mask = _masked_centres(n)
+    ct, mt = torch.from_numpy(c), torch.from_numpy(mask)
+    for ours in (thm.make_heatmaps_multi_fast(ct, sigmas, multiplier=mt),
+                 tkern.render_heatmaps(ct, sigmas, mt),
+                 tkern.RenderHeatmaps.apply(ct, sigmas, mt, (128, 72),
+                                            (1920.0, 1080.0))):
+        assert ours.shape == (3, n, 72, 128)
+        for s, sigma in enumerate(sigmas):
+            ref = np.asarray(jhm.make_heatmaps(jnp.asarray(c), sigma)
+                             * jnp.asarray(mask)[:, None, None])
+            # NaN where the NaN centre is, as `hm * mask` gives.
+            np.testing.assert_allclose(ours[s].numpy(), ref, **RENDER_TOL)
+    if n:
+        assert np.isnan(ours[:, 0].numpy()).all()
+        assert np.isfinite(ours[:, 1:].numpy()).all()
+
+
+def test_multi_sigma_dispatcher_keeps_leading_dims():
+    tkern.reset_launch_counts()
+    c = torch.from_numpy(_centres(6).reshape(2, 3, 2))
+    mask = torch.tensor([[1.0, 0.0, 1.0], [0.0, 1.0, 1.0]])
+    hm = thm.make_heatmaps_multi_fast(c, (10.0, 3.0), multiplier=mask)
+    assert hm.shape == (2, 2, 3, 72, 128)
+    for s, sigma in enumerate((10.0, 3.0)):
+        np.testing.assert_array_equal(
+            hm[s].numpy(),
+            (thm.make_heatmaps(c, sigma) * mask[..., None, None]).numpy())
+    np.testing.assert_array_equal(thm.make_heatmaps_fast(c, 3.0).numpy(),
+                                  thm.make_heatmaps(c, 3.0).numpy())
+    assert tkern.LAUNCHES == {'render_heatmaps': 0, 'soft_argmax': 0}
+
+
+def test_multi_render_grad_matches_jax_vjp():
+    sigmas = (10.0, 3.0, 5.0)
+    c = _centres(17)
+    mask = (np.arange(17) % 3 != 0).astype(np.float32)
+    g = np.random.RandomState(6).normal(size=(3, 17, 72, 128)).astype(
+        np.float32)
+
+    def jax_multi(x):
+        return jnp.stack([jhm.make_heatmaps(x, s) * jnp.asarray(mask)[:, None,
+                                                                      None]
+                          for s in sigmas])
+
+    _, vjp = jax.vjp(jax_multi, jnp.asarray(c))
+    (ref,) = vjp(jnp.asarray(g))
+    ct = torch.from_numpy(c).requires_grad_(True)
+    out = tkern.RenderHeatmaps.apply(ct, sigmas, torch.from_numpy(mask),
+                                     (128, 72), (1920.0, 1080.0))
+    (ours,) = torch.autograd.grad(out, ct, torch.from_numpy(g))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-6)
+
+
+def _big_maps(n, seed=7):
+    """144 x 256 maps: 36,864 pixels, four times the serving map."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(0, 1, (n, 144, 256)).astype(np.float32)
+    yy, xx = np.mgrid[:144, :256]
+    for i in range(n):
+        cy, cx = rng.uniform(0, 144), rng.uniform(0, 256)
+        x[i] += 0.5 * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 200.0)
+    return x
+
+
+@pytest.mark.parametrize('n', [1, 5])
+def test_soft_argmax_over_old_cap_matches_eve_tpu(n):
+    size = (256, 144)
+    x = _big_maps(n)
+    ref = np.asarray(jhm.soft_argmax(jnp.asarray(x), heatmap_size=size))
+    pallas = np.asarray(jkern.pallas_soft_argmax(jnp.asarray(x),
+                                                 heatmap_size=size,
+                                                 interpret=True))
+    np.testing.assert_allclose(pallas, ref, **SOFTARGMAX_TOL)
+    for ours in (tkern.soft_argmax(torch.from_numpy(x), heatmap_size=size),
+                 thm.soft_argmax_fast(torch.from_numpy(x).reshape(
+                     (1, n, 144, 256)), heatmap_size=size)[0]):
+        assert ours.shape == (n, 2)
+        np.testing.assert_allclose(ours.numpy(), ref, **SOFTARGMAX_TOL)
+        np.testing.assert_allclose(ours.numpy(), pallas, **SOFTARGMAX_TOL)
+
+
+@pytest.mark.parametrize('n,quads,sms,want', [
+    (80, 2304, 132, 2),      # the serving shape: 160 CTAs
+    (132, 2304, 132, 1),
+    (240, 2304, 132, 1),
+    (17, 2304, 132, 8),
+    (1, 2304, 132, 8),
+    (40, 2304, 132, 4),
+    (1, 9216, 132, 8),       # 144 x 256
+    (1, 600, 132, 2),        # small maps: a quad for every thread
+    (1, 100, 132, 1),
+])
+def test_soft_argmax_cluster_size(n, quads, sms, want):
+    assert tkern.soft_argmax_cluster_size(n, quads, sms) == want
+
+
+@pytest.mark.parametrize('s,n,sms,want', [
+    (1, 80, 132, 24),        # the serving shape: 240 CTAs
+    (3, 80, 132, 72),        # the label path: 240 CTAs
+    (1, 240, 132, 72),
+    (1, 17, 132, 5),
+    (1, 1, 132, 1),
+])
+def test_render_rows(s, n, sms, want):
+    assert tkern.render_rows(s, n, 72, sms) == want
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [0, 1, 17, 240])
+@pytest.mark.parametrize('n', [0, 1, 17, 80, 240])
 def test_kernels_match_plain_on_card(n):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card (chip_smoke.py runs the kernels there)')
     tkern.reset_launch_counts()
     c = torch.from_numpy(_centres(n)).cuda()
     for sigma in (10.0, 3.0, 5.0):
-        ours = tkern.render_heatmaps(c, sigma)
-        torch.testing.assert_close(ours, tkern.make_heatmaps_plain(c, sigma),
+        ours = tkern.render_heatmaps(c, (sigma,))
+        assert ours.shape == (1, n, 72, 128)
+        torch.testing.assert_close(ours[0],
+                                   tkern.make_heatmaps_plain(c, sigma),
                                    **RENDER_TOL)
+    cm, mask = _masked_centres(n)
+    cm, mask = torch.from_numpy(cm).cuda(), torch.from_numpy(mask).cuda()
+    sigmas = (10.0, 3.0, 5.0)
+    torch.testing.assert_close(
+        tkern.render_heatmaps(cm, sigmas, mask),
+        tkern.make_heatmaps_multi_plain(cm, sigmas, mask), equal_nan=True,
+        **RENDER_TOL)
     x = torch.from_numpy(_maps(n)).cuda()
     torch.testing.assert_close(tkern.soft_argmax(x),
                                tkern.soft_argmax_plain(x), **SOFTARGMAX_TOL)
+    big = torch.from_numpy(_big_maps(min(n, 17))).cuda()
+    torch.testing.assert_close(
+        tkern.soft_argmax(big, heatmap_size=(256, 144)),
+        tkern.soft_argmax_plain(big, heatmap_size=(256, 144)),
+        **SOFTARGMAX_TOL)
     launched = 1 if n else 0
-    assert tkern.LAUNCHES == {'render_heatmaps': 3 * launched,
-                              'soft_argmax': launched}
+    assert tkern.LAUNCHES == {'render_heatmaps': 4 * launched,
+                              'soft_argmax': 2 * launched}
