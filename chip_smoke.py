@@ -23,7 +23,22 @@
    CPU forward; then profiles one serving-shaped forward (torch.profiler)
    and runs one forward with ground-truth labels (B=8, T=10), which must
    launch the render twice and derive the CPU's labels.
-5. Prints the kernel table as one JSON line, the card, and last
+5. Training phase: the full-width ``configs/refine_net.json`` model
+   (frozen GRU-128 EyeNet, CLSTM-64 RefineNet with screen content and
+   skips), ``batch_size`` 8, T = 30, ``eye_net_load_pretrained`` overridden
+   to false (seeded ``init_weights`` instead), trained through
+   ``harness.Experiment``, ``init_datasets`` and ``main_loop_iterator`` on
+   an in-memory dataset of synthetic clips: 8 optimizer steps with a
+   checkpoint and a live validation at step 4, then a fresh ``Experiment``
+   resumed from that checkpoint runs steps 5-8 again. Checks finite
+   losses, a bitwise unchanged EyeNet and a changed RefineNet, the
+   checkpoint files, the resumed losses against the uninterrupted run's,
+   the launches of each kernel per training step and per eval batch, one
+   step on the card against the same step on the CPU (B = 2, T = 10), and
+   prints step time, frames/s, peak memory, a profile of one step (the
+   heatmap kernels' share included) and its forward, backward and update
+   times.
+6. Prints the kernel table as one JSON line, the card, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the run exits non-zero without the last line.
@@ -34,6 +49,7 @@ import http.client
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -44,6 +60,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, 'configs', 'refine_net.json')
+# Run directories of the training phase (git-ignored).
+TRAIN_OUT = os.path.join(ROOT, 'build', 'chip_smoke_train')
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and float32
 # (non-tensor-core) operations/s.
@@ -64,8 +82,41 @@ CPU_PX_ATOL = 5e-2
 OTHER_ATOL = 1e-3
 
 SESSIONS, CHUNKS, T, MAX_BATCH = 8, 3, 10, 8
-# Map counts the kernel phase holds the kernels at (80 = the serving shape).
+# Map counts the kernel phase holds the kernels at (80 = the serving shape,
+# 240 = the training shape).
 KERNEL_NS = (0, 1, 17, 80, 240)
+
+# Training phase: configs/refine_net.json's batch and clip length, 8
+# optimizer steps (one epoch of TRAIN_STEPS batches), a checkpoint and a
+# live validation every SAVE_EVERY steps, the resume from step SAVE_EVERY.
+TRAIN_B, TRAIN_T, TRAIN_STEPS, SAVE_EVERY = 8, 30, 8, 4
+VAL_CLIPS = 16
+# Card vs CPU training step.
+CMP_B, CMP_T = 2, 10
+# The resumed steps' full_loss against the uninterrupted run's: the card's
+# cuDNN backward algorithms and upsample_bilinear2d's backward (atomics)
+# are not bitwise deterministic, and Adam carries those last-bit
+# differences through 4 updates; deterministic algorithms are not an
+# option (that upsample backward raises under them).
+RESUME_LOSS_TOL = dict(rtol=1e-3, atol=1e-5)
+# Card vs CPU, one training step from the same seeded weights (not the
+# trained ones, which differ from run to run on the card), batch and
+# kappas: cuDNN (FFT and implicit-GEMM float32 convolutions, TF32 off) vs
+# oneDNN, summed in other orders through ~50 layers forward and back.
+# RefineNet's float32 gradient is ill-conditioned: a max-pool window whose
+# two largest inputs lie within rounding routes its gradient to either, so
+# at these weights the CPU's own gradient moves by up to ~1% of a layer's
+# largest element when every weight is scaled by (1 + 1e-7 N(0, 1)) (the
+# script prints that spread beside each error). So each RefineNet gradient
+# is held as the CPU parity tests hold RefineNet against eve_tpu: its L2
+# error within CMP_GRAD_L2 of its layer's gradient norm, and every element
+# within CMP_GRAD_ELEM of its layer's largest element (a layer is a
+# module's weight and bias together: a bias that an instance norm follows
+# has a true gradient of 0, and either device computes float32 noise for
+# it).
+CMP_LOSS_TOL = dict(rtol=1e-4, atol=1e-6)
+CMP_GRAD_L2, CMP_GRAD_ELEM, CMP_PERTURB = 3e-2, 0.1, 1e-7
+CMP_CARD_STEPS = 4
 
 
 def log(*args):
@@ -186,32 +237,38 @@ def kernel_phase(hk):
                          % (n, h, w, dtype), **SOFTARGMAX_TOL)
             errs['soft_argmax'] = max(errs['soft_argmax'], max_err(ours, ref))
 
-    # One backward through each autograd.Function, against autograd of the
-    # plain version on the same inputs.
-    c = torch.from_numpy(gen.uniform(0, 1900, (80, 2)).astype(
-        np.float32)).to(dev)
-    mask = (torch.arange(80, device=dev) % 3 != 0).float()
-    g = torch.randn((3, 80, 72, 128), device=dev,
-                    generator=torch.Generator(dev).manual_seed(0))
-    ci = c.clone().requires_grad_(True)
-    hk.RenderHeatmaps.apply(ci, sigmas, mask, (128, 72),
-                            (1920.0, 1080.0)).backward(g)
-    cr = c.clone().requires_grad_(True)
-    hk.make_heatmaps_multi_plain(cr, sigmas, mask).backward(g)
-    assert_close(ci.grad, cr.grad, 'render backward', rtol=1e-4, atol=1e-6)
-    x = _peaked_maps(gen, 80, 72, 128, dev)
-    xi = x.clone().requires_grad_(True)
-    gp = torch.randn((80, 2), device=dev,
-                     generator=torch.Generator(dev).manual_seed(1))
-    hk.SoftArgmax.apply(xi, (128, 72), (1920.0, 1080.0), 100.0).backward(gp)
-    xr = x.clone().requires_grad_(True)
-    hk.soft_argmax_plain(xr).backward(gp)
-    assert_close(xi.grad, xr.grad, 'soft_argmax backward', rtol=1e-4,
-                 atol=1e-4 * float(xr.grad.abs().max()))
+    # The backward of each autograd.Function (the plain formula's, as
+    # eve_tpu's custom_vjp), against autograd of the plain version on the
+    # same inputs, at the serving and the training map counts.
+    for n in (80, TRAIN_B * TRAIN_T):
+        c = torch.from_numpy(gen.uniform(0, 1900, (n, 2)).astype(
+            np.float32)).to(dev)
+        mask = (torch.arange(n, device=dev) % 3 != 0).float()
+        for sig, msk in (((10.0,), None), (sigmas, mask)):
+            g = torch.randn((len(sig), n, 72, 128), device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+            ci = c.clone().requires_grad_(True)
+            hk.RenderHeatmaps.apply(ci, sig, msk, (128, 72),
+                                    (1920.0, 1080.0)).backward(g)
+            cr = c.clone().requires_grad_(True)
+            hk.make_heatmaps_multi_plain(cr, sig, msk).backward(g)
+            assert_close(ci.grad, cr.grad, 'render backward N=%d S=%d'
+                         % (n, len(sig)), rtol=1e-4, atol=1e-6)
+        x = _peaked_maps(gen, n, 72, 128, dev)
+        xi = x.clone().requires_grad_(True)
+        gp = torch.randn((n, 2), device=dev,
+                         generator=torch.Generator(dev).manual_seed(1))
+        hk.SoftArgmax.apply(xi, (128, 72), (1920.0, 1080.0),
+                            100.0).backward(gp)
+        xr = x.clone().requires_grad_(True)
+        hk.soft_argmax_plain(xr).backward(gp)
+        assert_close(xi.grad, xr.grad, 'soft_argmax backward N=%d' % n,
+                     rtol=1e-4, atol=1e-4 * float(xr.grad.abs().max()))
     log('kernel phase: kernels match their plain versions at N=%s (render '
-        'S=1 and S=3 masked; soft-argmax 72x128 and 144x256); max abs err '
-        'render %.3g, soft-argmax %.3g px'
-        % (list(KERNEL_NS), errs['render_heatmaps'], errs['soft_argmax']))
+        'S=1 and S=3 masked; soft-argmax 72x128 and 144x256), backward at '
+        'N=80 and %d; max abs err render %.3g, soft-argmax %.3g px'
+        % (list(KERNEL_NS), TRAIN_B * TRAIN_T, errs['render_heatmaps'],
+           errs['soft_argmax']))
     return errs
 
 
@@ -563,6 +620,333 @@ def serve_phase(hk):
         http_thread.join(timeout=30)
 
 
+# ---------------------------------------------------------------------------
+# Training phase
+# ---------------------------------------------------------------------------
+
+class SyntheticClips:
+    """An in-memory dataset of synthetic clips ('disc' eyes, uint8
+    frames), built in one draw: ``dataset[i]`` is clip i's dict."""
+
+    def __init__(self, seed, n, t, eyes=128):
+        from eve_tpu_torch.data.synthetic import make_synthetic_batch
+        batch = make_synthetic_batch(np.random.RandomState(seed),
+                                     batch_size=n, sequence_len=t,
+                                     eyes_size=eyes, frame_dtype=np.uint8)
+        self.clips = [{k: v[i] for k, v in batch.items()} for i in range(n)]
+
+    def __len__(self):
+        return len(self.clips)
+
+    def __getitem__(self, i):
+        return self.clips[i]
+
+
+def train_config(**overrides):
+    from eve_tpu_torch.config import Config
+    config = Config()
+    config.import_json(CONFIG)
+    config.import_dict(dict({
+        # No released EyeNet weights in the checkout: a seeded init.
+        'eye_net_load_pretrained': False, 'batch_size': TRAIN_B,
+        'num_epochs': 1.0, 'fully_reproducible': True,
+        'checkpoints_save_every_n_steps': SAVE_EVERY,
+        'test_every_n_steps': SAVE_EVERY, 'test_num_samples': VAL_CLIPS,
+        'test_batch_size': TRAIN_B, 'train_data_workers': 4,
+        'checkpoints_keep_n': 3}, **overrides))
+    return config
+
+
+def sub_state(model, prefix):
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+            if k.startswith(prefix)}
+
+
+def run_training(config, train_sets, test_sets, device, resume_from=''):
+    """One harness run; ``(experiment, {step: full_loss}, [step wall s])``.
+
+    Each step is timed from the end of the previous one (the device
+    synchronised), so a step's wall time holds its data wait too, and the
+    step after a checkpoint and validation holds those.
+    """
+    from eve_tpu_torch.train import harness
+    config.override('resume_from', resume_from)
+    train_data, test_data = harness.init_datasets(config, train_sets,
+                                                  test_sets)
+    exp = harness.Experiment(config, output_dir_base=TRAIN_OUT,
+                             device=device)
+    losses, walls = {}, []
+    t0 = time.perf_counter()
+    for step, metrics in harness.main_loop_iterator(exp, train_data,
+                                                    test_data):
+        losses[step] = float(metrics['full_loss'])
+        if device.type == 'cuda':
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        walls.append(t1 - t0)
+        t0 = t1
+        if not np.isfinite(losses[step]):
+            raise AssertionError('step %d: full_loss %s' % (step,
+                                                            losses[step]))
+    exp.close()
+    return exp, losses, walls
+
+
+def profile_train_step(state, batch, device, steps=2):
+    """Wall ms, device-busy ms and top kernels of one training step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from eve_tpu_torch.train import harness
+    from eve_tpu_torch.train import step as step_lib
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step_lib.train_step(state, batch, harness.kappa_generator(0, i))
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, 'self_device_time_total', 0) > 0
+               and e.self_cpu_time_total == 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    launches = sum(e.count for e in kernels) / steps
+    log('train profile: step B=%d T=%d: %.2f ms wall (profiled), %.2f ms '
+        'device busy (%.0f%%), %.0f kernel launches'
+        % (TRAIN_B, TRAIN_T, wall_ms, busy_ms, 100 * busy_ms / wall_ms,
+           launches))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        log('train profile:   %8.3f ms %5.0fx  %s'
+            % (e.self_device_time_total / 1e3 / steps, e.count / steps,
+               e.key[:90]))
+    heatmap_ms = sum(e.self_device_time_total for e in kernels
+                     if 'render_heatmaps_kernel' in e.key or
+                     'soft_argmax_kernel' in e.key) / 1e3 / steps
+    log('train profile: the two heatmap kernels %.4f ms of device time a '
+        'step (%.3f%% of the busy time)' % (heatmap_ms,
+                                           100 * heatmap_ms / busy_ms))
+
+    # Forward, backward and update, each timed with CUDA events.
+    model = state.model
+    phases = {'forward': [], 'backward': [], 'update': []}
+    for i in range(3):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        marks[0].record()
+        out = model(batch, training=True,
+                    generator=harness.kappa_generator(0, 10 + i))
+        marks[1].record()
+        out['full_loss'].backward()
+        marks[2].record()
+        state.step += 1
+        step_lib.apply_update(state)
+        marks[3].record()
+        torch.cuda.synchronize(device)
+        for j, name in enumerate(phases):
+            phases[name].append(marks[j].elapsed_time(marks[j + 1]))
+    log('train profile: step phases (CUDA events, median of 3): %s'
+        % ', '.join('%s %.2f ms' % (k, float(np.median(v)))
+                    for k, v in phases.items()))
+    return busy_ms / wall_ms
+
+
+def counted(hk, fn):
+    """Run ``fn`` with the launch counts at 0; ``(result, launches)``."""
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, dict(hk.LAUNCHES)
+
+
+def compare_card_cpu(spec, card):
+    """One training step's full_loss and RefineNet gradients, card vs
+    CPU, from the same seeded weights, batch and kappas (see
+    CMP_GRAD_L2). The card takes the step CMP_CARD_STEPS times, and each
+    is held to the limits; the script prints the card's spread between
+    its own steps and the CPU's under a weight perturbation beside it."""
+    from eve_tpu_torch.models import eve as eve_lib
+    from eve_tpu_torch.train import harness
+    from eve_tpu_torch.train import step as step_lib
+    with torch.device('meta'):  # names and shapes only
+        skeleton = eve_lib.EVE(spec)
+    state_dict = random_state_dict(skeleton, seed=5)
+    clips = SyntheticClips(7, CMP_B, CMP_T)
+    batch = {k: np.stack([c[k] for c in clips.clips]) for k in clips[0]}
+    noise = torch.Generator().manual_seed(1)
+    perturbed = {k: v * (1 + CMP_PERTURB * torch.randn(v.shape,
+                                                       generator=noise))
+                 if k.startswith('refine_net.') else v
+                 for k, v in state_dict.items()}
+    loss, grads = [], []
+    runs = [('cpu', state_dict), ('cpu', perturbed)] + \
+        [(card, state_dict)] * CMP_CARD_STEPS
+    for device, weights in runs:
+        model = eve_lib.build_model(spec, weights, device)
+        out = step_lib.accumulate_gradients(
+            model, eve_lib.batch_to_tensors(batch, device),
+            harness.kappa_generator(0, 1000))
+        loss.append(out['full_loss'].item())
+        grads.append({n: p.grad.cpu() for n, p
+                      in model.refine_net.named_parameters()
+                      if p.grad is not None})
+        if any(p.grad is not None for p in model.eye_net.parameters()):
+            raise AssertionError('a frozen EyeNet parameter has a gradient')
+    cpu, cpu_perturbed, cards = grads[0], grads[1], grads[2:]
+    for card_loss in loss[2:]:
+        np.testing.assert_allclose(card_loss, loss[0], **CMP_LOSS_TOL,
+                                   err_msg='card vs CPU full_loss')
+    layers = {}
+    for name, g in cpu.items():
+        layers.setdefault(name.rsplit('.', 1)[0], []).append(g.flatten())
+    layer_max = {k: float(torch.cat(v).abs().max()) for k, v in layers.items()}
+    layer_l2 = {k: float(torch.cat(v).norm()) for k, v in layers.items()}
+
+    def worst(pairs):
+        """Largest L2 error over the layer's norm and largest element
+        error over the layer's largest element, each with its tensor."""
+        l2 = elem = (0.0, '')
+        for a, b in pairs:
+            for name, g in b.items():
+                layer = name.rsplit('.', 1)[0]
+                d = a[name] - g
+                l2 = max(l2, (float(d.norm()) / layer_l2[layer], name))
+                elem = max(elem, (float(d.abs().max()) / layer_max[layer],
+                                  name))
+        return l2, elem
+
+    results = {'card vs CPU': worst((c, cpu) for c in cards),
+               'card vs card': worst((c, cards[0]) for c in cards[1:]),
+               'CPU under a %g weight perturbation' % CMP_PERTURB:
+               worst([(cpu_perturbed, cpu)])}
+    for what, (l2, elem) in results.items():
+        log('train: %s, B=%d T=%d: worst L2 error %.3g of its layer\'s '
+            'gradient norm (%s), worst element error %.3g of its layer\'s '
+            'largest element (%s)' % (what, CMP_B, CMP_T, l2[0], l2[1],
+                                      elem[0], elem[1]))
+    l2, elem = results['card vs CPU']
+    if l2[0] > CMP_GRAD_L2 or elem[0] > CMP_GRAD_ELEM:
+        raise AssertionError('card vs CPU gradients beyond the limits (L2 '
+                             '%g, element %g): %s' % (
+                                 CMP_GRAD_L2, CMP_GRAD_ELEM, results))
+    log('train: card vs CPU: full_loss %.7f on the CPU, %s on the card; all '
+        '%d RefineNet gradients of %d card steps within %g (L2) and %g '
+        '(element) of their layer\'s' % (
+            loss[0], ', '.join('%.7f' % x for x in loss[2:]), len(cpu),
+            CMP_CARD_STEPS, CMP_GRAD_L2, CMP_GRAD_ELEM))
+    return l2[0], elem[0]
+
+
+def training_phase(hk, card):
+    """Train the full-width configs/refine_net.json model; returns the
+    training path's launch counts and per-step figures."""
+    from eve_tpu_torch.models import eve as eve_lib
+    from eve_tpu_torch.train import harness
+    from eve_tpu_torch.train import step as step_lib
+
+    shutil.rmtree(TRAIN_OUT, ignore_errors=True)
+    t0 = time.perf_counter()
+    train_sets = [('synthetic', SyntheticClips(11, TRAIN_B * TRAIN_STEPS,
+                                               TRAIN_T))]
+    test_sets = [('synthetic_val', SyntheticClips(12, VAL_CLIPS, TRAIN_T))]
+    log('train: %d training and %d validation clips of T=%d built in %.1f s;'
+        ' eye_net_load_pretrained overridden to false (seeded '
+        'init_weights, no released weights in the checkout)'
+        % (len(train_sets[0][1]), VAL_CLIPS, TRAIN_T,
+           time.perf_counter() - t0))
+
+    # --- the training main path, counted ---
+    torch.cuda.reset_peak_memory_stats(card)
+    (exp, losses, walls), launches = counted(hk, lambda: run_training(
+        train_config(), train_sets, test_sets, card))
+    peak = torch.cuda.max_memory_allocated(card)
+    # --- end of the counted run ---
+    steps = len(losses)
+    eval_batches = 2 * -(-VAL_CLIPS // TRAIN_B)   # two live validations
+    want = {'render_heatmaps': 3 * steps + 2 * eval_batches,
+            'soft_argmax': steps + eval_batches}
+    log('train: %d steps, full_loss %s' % (steps, ', '.join(
+        '%.5f' % losses[k] for k in sorted(losses))))
+    log('train: kernel launches %s over %d steps and %d eval batches (want '
+        '%s)' % (launches, steps, eval_batches, want))
+    if steps != TRAIN_STEPS or launches != want:
+        raise AssertionError('training main path: %d steps, launches %s'
+                             % (steps, launches))
+    step_s = float(np.median(walls[2:]))
+    log('train: step wall %.1f ms (median of steps 3-%d, data wait '
+        'included), %.1f training frames/s, peak device memory %.2f GiB '
+        '(%s)' % (1e3 * step_s, steps, TRAIN_B * TRAIN_T / step_s,
+                  peak / 2 ** 30, card_line()))
+    log('train: step walls ms %s' % ', '.join('%.1f' % (1e3 * w)
+                                               for w in walls))
+
+    model = exp.state.model
+    init = eve_lib.init_model(exp.spec, torch.Generator().manual_seed(0),
+                              'cpu')
+    for k, v in sub_state(init, 'eye_net.').items():
+        if not torch.equal(v, model.state_dict()[k].cpu()):
+            raise AssertionError('frozen EyeNet parameter %s changed' % k)
+    # Every RefineNet tensor moves but the CLSTM's gates: under
+    # clstm_carry_only the cell's state never reaches the loss, so their
+    # gradient is zero (and weight_decay is 0 in this config).
+    unchanged = [k for k, v in sub_state(init, 'refine_net.').items()
+                 if torch.equal(v, model.state_dict()[k].cpu())]
+    n_refine = len(sub_state(init, 'refine_net.'))
+    if any('.rnn_cells.' not in k for k in unchanged):
+        raise AssertionError('RefineNet tensors unchanged: %s' % unchanged)
+    ckpts = sorted(os.listdir(os.path.join(exp.output_dir, 'checkpoints')))
+    files = sorted(os.listdir(os.path.join(exp.output_dir, 'checkpoints',
+                                           ckpts[0])))
+    log('train: EyeNet bitwise unchanged; %d of %d RefineNet tensors '
+        'changed (unchanged: %s); checkpoints %s holding %s'
+        % (n_refine - len(unchanged), n_refine, unchanged, ckpts, files))
+    if ckpts != ['%07d.ckpt' % SAVE_EVERY, '%07d.ckpt' % TRAIN_STEPS] or \
+            files != ['eye_net.npz', 'optimizer_torch.npz',
+                      'refine_net.npz']:
+        raise AssertionError('checkpoints: %s %s' % (ckpts, files))
+
+    # --- resume from the step-4 checkpoint in a fresh Experiment ---
+    resume_dir = os.path.join(TRAIN_OUT, 'resumed')
+    os.makedirs(os.path.join(resume_dir, 'checkpoints'))
+    shutil.copytree(os.path.join(exp.output_dir, 'checkpoints',
+                                 '%07d.ckpt' % SAVE_EVERY),
+                    os.path.join(resume_dir, 'checkpoints',
+                                 '%07d.ckpt' % SAVE_EVERY))
+    exp2, resumed, _ = run_training(train_config(), train_sets, test_sets,
+                                    card, resume_from=resume_dir)
+    if sorted(resumed) != list(range(SAVE_EVERY, TRAIN_STEPS)):
+        raise AssertionError('resumed steps %s' % sorted(resumed))
+    a = np.array([losses[k] for k in sorted(resumed)])
+    b = np.array([resumed[k] for k in sorted(resumed)])
+    np.testing.assert_allclose(b, a, **RESUME_LOSS_TOL,
+                               err_msg='resumed vs uninterrupted full_loss')
+    log('train: resumed from step %d: steps %d-%d full_loss %s vs '
+        'uninterrupted %s, max rel err %.3g (limit rtol %g)'
+        % (SAVE_EVERY, SAVE_EVERY + 1, TRAIN_STEPS,
+           ', '.join('%.6f' % x for x in b), ', '.join('%.6f' % x for x in a),
+           float(np.max(np.abs(b - a) / np.abs(a))),
+           RESUME_LOSS_TOL['rtol']))
+
+    # --- launches per training step and per eval batch; a profile ---
+    loader = harness.init_datasets(train_config(), train_sets,
+                                   test_sets)[0]['synthetic']['dataloader']
+    from eve_tpu_torch.data.loader import to_device
+    batch, _ = to_device(next(iter(loader)), card)
+    _, per_step = counted(hk, lambda: step_lib.train_step(
+        exp2.state, batch, harness.kappa_generator(0, 100)))
+    _, per_eval = counted(hk, lambda: step_lib.eval_step(model, batch))
+    log('train: kernel launches per training step %s, per eval batch %s'
+        % (per_step, per_eval))
+    if per_step != {'render_heatmaps': 3, 'soft_argmax': 1} or \
+            per_eval != {'render_heatmaps': 2, 'soft_argmax': 1}:
+        raise AssertionError('launches per step %s, per eval batch %s'
+                             % (per_step, per_eval))
+    busy = profile_train_step(exp2.state, batch, card)
+
+    compare_card_cpu(exp.spec, card)
+    return {'launches': launches, 'per_step': per_step,
+            'per_eval_batch': per_eval, 'step_ms': 1e3 * step_s,
+            'busy': busy}
+
+
 def main():
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA card visible (torch.cuda.is_available() '
@@ -591,6 +975,7 @@ def main():
     errs = kernel_phase(hk)
     timings = kernel_timings(hk, SESSIONS * T)
     launches = serve_phase(hk)
+    train = training_phase(hk, torch.device('cuda', 0))
 
     source = 'eve_tpu_torch/csrc/heatmap_kernels.cu'
     replaces = {'render_heatmaps': 'eve_tpu/kernels/heatmap_kernels.py:38',
@@ -598,6 +983,9 @@ def main():
     kernels = [dict({'name': name, 'route': 'cuda', 'source': source,
                      'replaces': replaces[name],
                      'launches': launches[name],
+                     'train_launches': train['launches'][name],
+                     'launches_per_train_step': train['per_step'][name],
+                     'launches_per_eval_batch': train['per_eval_batch'][name],
                      'max_abs_err': errs[name]}, **timings[name])
                for name in ('render_heatmaps', 'soft_argmax')]
     kernels[0]['s3'] = timings['render_heatmaps_s3']

@@ -223,8 +223,11 @@ def render_heatmaps(centres_px, sigmas, multiplier=None,
 
 class RenderHeatmaps(torch.autograd.Function):
     """Kernel forward, (S, N, H, W); backward to the centres through the
-    plain formula, one sigma at a time. The multiplier is a mask: no
-    gradient flows to it."""
+    plain formula, one sigma at a time, as eve_tpu's ``custom_vjp``
+    differentiates its jnp formula (there is no backward kernel). The
+    multiplier is a mask: no gradient flows to it. In training with a
+    frozen EyeNet the centres carry no gradient, so this backward runs
+    only when EyeNet trains."""
 
     @staticmethod
     def forward(ctx, centres_px, sigmas, multiplier, heatmap_size,
@@ -314,7 +317,10 @@ def soft_argmax(heatmaps, heatmap_size=(HEATMAP_W, HEATMAP_H),
 
 
 class SoftArgmax(torch.autograd.Function):
-    """Kernel forward; backward through the plain formula."""
+    """Kernel forward; backward through the plain formula, as eve_tpu's
+    ``custom_vjp`` differentiates its jnp formula (there is no backward
+    kernel). On the training path its gradient feeds
+    ``loss_mse_PoG_cm_final``."""
 
     @staticmethod
     def forward(ctx, heatmaps, heatmap_size, actual_screen_size, beta):

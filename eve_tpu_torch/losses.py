@@ -40,8 +40,13 @@ def mse_loss(pred, gt, validity):
 
 
 def l1_loss(pred, gt, validity):
-    """Per-frame mean absolute error over the feature dims."""
-    ab = torch.abs(pred.float() - gt.float())
+    """Per-frame mean absolute error over the feature dims.
+
+    Where prediction equals label the gradient is +1, as ``jnp.abs``'s is
+    (``torch.abs`` gives 0 there).
+    """
+    d = pred.float() - gt.float()
+    ab = torch.where(d >= 0, d, -d)
     per_frame = ab.mean(dim=_feature_dims(pred)) if pred.ndim > 2 else ab
     return masked_mean(per_frame, validity)
 

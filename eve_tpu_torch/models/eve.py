@@ -15,12 +15,22 @@ staging of a (B, T, ...) clip batch:
 
 The public batch is eve_tpu's: the same keys, NHWC image tensors, uint8 or
 float frames; the NHWC -> NCHW permute happens once, here. Output, loss and
-metric names are eve_tpu's. Training (offset augmentation and the backward
-pass) is a later slice, as are the bfloat16 compute type, the opt-in
-TPU-native topology, the sequence mesh and rematerialization.
+metric names are eve_tpu's.
+
+``forward(training=True, generator=...)`` is eve_tpu's training forward:
+the initial gazes get a kappa offset (``std * N(0, 1)`` per clip and eye,
+drawn on a CPU ``torch.Generator`` so that the card and the CPU draw the
+same kappas, or injected as ``left_kappa_fake``/``right_kappa_fake``), and
+the initial losses read the unaugmented ``*_unaugmented`` branch. With
+``eye_net_frozen`` EyeNet's parameters do not require gradients and its
+stages run under ``torch.no_grad()``. The bfloat16 compute type, the opt-in
+TPU-native topology, the sequence mesh and rematerialization are later
+slices.
 """
 
+import contextlib
 import dataclasses
+import math
 from typing import Tuple
 
 import numpy as np
@@ -30,6 +40,7 @@ import torch.nn as nn
 from eve_tpu_torch import losses as losses_lib
 from eve_tpu_torch.models.cells import CONV_CELLS, DENSE_CELLS, zero_state
 from eve_tpu_torch.models.eye_net import EyeNet
+from eve_tpu_torch.models.layers import InstanceNorm
 from eve_tpu_torch.models.refine_net import LEVEL_SHAPES, RefineNet
 from eve_tpu_torch.ops import geometry as geo
 from eve_tpu_torch.ops import heatmap as hm_ops
@@ -38,15 +49,19 @@ from eve_tpu_torch.ops import heatmap as hm_ops
 @dataclasses.dataclass(frozen=True)
 class EveSpec:
     """Static model specification: the fields of eve_tpu's ``EveSpec`` that
-    inference reads (the training-only ones come with the training slice)."""
+    the reference topology reads."""
     # EyeNet
     eye_net_use_rnn: bool = True
     eye_net_rnn_type: str = 'GRU'
     eye_net_rnn_num_cells: int = 1
     eye_net_num_features: int = 128
     eye_net_use_head_pose_input: bool = True
+    eye_net_frozen: bool = False
     # RefineNet
     refine_net_enabled: bool = False
+    refine_net_do_offset_augmentation: bool = True
+    refine_net_offset_augmentation_sigma: float = 3.0
+    refine_net_offset_augmentation_zero_prob: float = 0.0
     refine_net_use_skip_connections: bool = True
     refine_net_use_rnn: bool = True
     refine_net_rnn_type: str = 'CGRU'
@@ -87,7 +102,14 @@ class EveSpec:
                                   if config.eye_net_use_rnn
                                   else config.eye_net_static_num_features),
             eye_net_use_head_pose_input=config.eye_net_use_head_pose_input,
+            eye_net_frozen=config.eye_net_frozen,
             refine_net_enabled=config.refine_net_enabled,
+            refine_net_do_offset_augmentation=(
+                config.refine_net_do_offset_augmentation),
+            refine_net_offset_augmentation_sigma=(
+                config.refine_net_offset_augmentation_sigma),
+            refine_net_offset_augmentation_zero_prob=(
+                config.refine_net_offset_augmentation_zero_prob),
             refine_net_use_skip_connections=(
                 config.refine_net_use_skip_connections),
             refine_net_use_rnn=config.refine_net_use_rnn,
@@ -183,72 +205,61 @@ class EVE(nn.Module):
                 rnn_num_cells=spec.refine_net_rnn_num_cells,
                 num_features=spec.refine_net_num_features,
                 clstm_carry_only=spec.clstm_carry_only)
+        if spec.eye_net_frozen:
+            # As the reference freezes it: no gradient, no optimizer state.
+            self.eye_net.requires_grad_(False)
 
-    def forward(self, batch, training=False, output_predictions=False,
-                initial_states=None, return_states=False):
+    def forward(self, batch, training=False, generator=None,
+                output_predictions=False, initial_states=None,
+                return_states=False):
         """Full EVE forward over a (B, T, ...) clip batch of tensors.
 
         Returns the output dict of losses, metrics and (optionally)
         predictions, with eve_tpu's key names; ``return_states`` adds the
         final recurrent states (see ``init_stream_state``) under 'states'.
+        ``training`` turns on the kappa offset augmentation, whose kappas
+        are drawn on ``generator`` (a CPU ``torch.Generator``) unless the
+        batch carries ``left_kappa_fake`` and ``right_kappa_fake``.
         """
-        if training:
-            raise NotImplementedError(
-                'forward(training=True) (offset augmentation and the '
-                'backward pass) is the training slice of the port; see '
-                'ROADMAP.md')
         spec = self.spec
         eye_net, refine_net = self.eye_net, self.refine_net
         full = dict(batch)
-        full.update(calculate_additional_labels(spec, batch))
+        full.update(calculate_additional_labels(spec, batch, generator,
+                                                training))
 
-        left = full['left_eye_patch']
-        B, T = left.shape[0], left.shape[1]
+        B, T = full['left_eye_patch'].shape[:2]
         BT = B * T
-        nf = spec.eye_net_num_features
 
-        # --- Stage 1: CNN features for all frames and both eyes ---
-        patches = _nhwc_to_nchw(torch.cat([
-            _to_compute(full['left_eye_patch']).reshape((BT,) + left.shape[2:]),
-            _to_compute(full['right_eye_patch']).reshape((BT,) + left.shape[2:]),
-        ], dim=0))
-        head_pose = None
-        if spec.eye_net_use_head_pose_input:
-            head_pose = torch.cat([full['left_h'].reshape(BT, 2),
-                                   full['right_h'].reshape(BT, 2)], dim=0)
-        feats = eye_net.features(patches, head_pose)
-        feats_l = feats[:BT].reshape(B, T, nf)
-        feats_r = feats[BT:].reshape(B, T, nf)
-
-        # --- Stage 2: the dense cell stack over T, both eyes stacked ---
-        if spec.eye_net_use_rnn:
-            if initial_states is not None:
-                states = tree_map(lambda a, b: torch.cat([a, b], dim=0),
-                                  initial_states['eye_left'],
-                                  initial_states['eye_right'])
-            else:
-                states = eye_net.init_state(2 * B, device=feats.device)
-            feats_lr = torch.cat([feats_l, feats_r], dim=0)   # (2B, T, F)
-            outs = []
-            for t in range(T):
-                out, states = eye_net.recurrent(feats_lr[:, t], states)
-                outs.append(out)
-            out_lr = torch.stack(outs, dim=1)
-            final_states = {'eye_left': tree_map(lambda a: a[:B], states),
-                            'eye_right': tree_map(lambda a: a[B:], states)}
-            rnn_l, rnn_r = out_lr[:B], out_lr[B:]
-        else:
-            rnn_l = eye_net.static_path(feats_l)
-            rnn_r = eye_net.static_path(feats_r)
-            final_states = {'eye_left': (), 'eye_right': ()}
-
-        # --- Stage 3: heads, projection, initial heatmap ---
-        g_l, pupil_l = eye_net.heads(rnn_l)
-        g_r, pupil_r = eye_net.heads(rnn_r)
+        # A frozen EyeNet's stages keep no graph.
+        eye_ctx = (torch.no_grad() if spec.eye_net_frozen
+                   else contextlib.nullcontext())
+        with eye_ctx:
+            feats, rnn_l, rnn_r, final_states = self._eye_net_stages(
+                full, B, T, initial_states)
+            # --- Stage 3: heads ---
+            g_l, pupil_l = eye_net.heads(rnn_l)
+            g_r, pupil_r = eye_net.heads(rnn_r)
         interm = {
             'left_g_initial': g_l, 'right_g_initial': g_r,
             'left_pupil_size': pupil_l, 'right_pupil_size': pupil_r,
         }
+
+        # Kappa offset augmentation needs the head rotation; the initial
+        # losses then read the unaugmented branch.
+        do_aug = (training and spec.refine_net_do_offset_augmentation and
+                  'head_R' in full)
+        if do_aug:
+            for k, v in g_to_pog(spec, full, g_l, g_r).items():
+                interm[k + '_initial_unaugmented'] = v
+            interm['left_g_initial_unaugmented'] = g_l
+            interm['right_g_initial_unaugmented'] = g_r
+            g_l = geo.apply_offset_augmentation(
+                g_l, full['head_R'], full['left_kappa_fake'])
+            g_r = geo.apply_offset_augmentation(
+                g_r, full['head_R'], full['right_kappa_fake'])
+            interm['left_g_initial'] = g_l
+            interm['right_g_initial'] = g_r
+        # --- Projection and the initial heatmap ---
         for k, v in g_to_pog(spec, full, g_l, g_r).items():
             interm[k + '_initial'] = v
 
@@ -313,11 +324,116 @@ class EVE(nn.Module):
                     if k in interm:
                         output[k] = interm[k]
 
-        calculate_losses_and_metrics(full, interm, output)
+        calculate_losses_and_metrics(full, interm, output, do_aug)
         output['full_loss'] = _full_loss(spec, output, feats.device)
         if return_states:
             output['states'] = final_states
         return output
+
+    def _eye_net_stages(self, full, B, T, initial_states):
+        """Stages 1-2: ``(features, rnn_left, rnn_right, final_states)``."""
+        spec = self.spec
+        eye_net = self.eye_net
+        BT = B * T
+        nf = spec.eye_net_num_features
+        left = full['left_eye_patch']
+
+        # --- Stage 1: CNN features for all frames and both eyes ---
+        patches = _nhwc_to_nchw(torch.cat([
+            _to_compute(full['left_eye_patch']).reshape((BT,) + left.shape[2:]),
+            _to_compute(full['right_eye_patch']).reshape((BT,) + left.shape[2:]),
+        ], dim=0))
+        head_pose = None
+        if spec.eye_net_use_head_pose_input:
+            head_pose = torch.cat([full['left_h'].reshape(BT, 2),
+                                   full['right_h'].reshape(BT, 2)], dim=0)
+        feats = eye_net.features(patches, head_pose)
+        feats_l = feats[:BT].reshape(B, T, nf)
+        feats_r = feats[BT:].reshape(B, T, nf)
+
+        # --- Stage 2: the dense cell stack over T, both eyes stacked ---
+        if spec.eye_net_use_rnn:
+            if initial_states is not None:
+                states = tree_map(lambda a, b: torch.cat([a, b], dim=0),
+                                  initial_states['eye_left'],
+                                  initial_states['eye_right'])
+            else:
+                states = eye_net.init_state(2 * B, device=feats.device)
+            feats_lr = torch.cat([feats_l, feats_r], dim=0)   # (2B, T, F)
+            outs = []
+            for t in range(T):
+                out, states = eye_net.recurrent(feats_lr[:, t], states)
+                outs.append(out)
+            out_lr = torch.stack(outs, dim=1)
+            final_states = {'eye_left': tree_map(lambda a: a[:B], states),
+                            'eye_right': tree_map(lambda a: a[B:], states)}
+            rnn_l, rnn_r = out_lr[:B], out_lr[B:]
+        else:
+            rnn_l = eye_net.static_path(feats_l)
+            rnn_r = eye_net.static_path(feats_r)
+            final_states = {'eye_left': (), 'eye_right': ()}
+        return feats, rnn_l, rnn_r, final_states
+
+
+def init_weights(model, generator):
+    """Fill every parameter of ``model`` with eve_tpu's initialisers.
+
+    Drawn on ``generator`` (a CPU ``torch.Generator``) and copied to the
+    parameters' device, so a seed gives the same weights on any device:
+
+    - convolutions (cells' included): kaiming-normal, fan_out, relu gain,
+      std sqrt(2 / (O * KH * KW)); zero bias;
+    - linear layers: U(+-1/sqrt(fan_in)) for weight and bias;
+    - dense RNN cells: U(+-1/sqrt(H)) for every parameter;
+    - affine instance norms: ones and zeros;
+    - EyeNet's ``fc_to_gaze.2`` and RefineNet's ``final.2``: zero.
+    """
+    def fill(p, sample):
+        with torch.no_grad():
+            p.copy_(sample(torch.empty(p.shape)))
+
+    def uniform(bound):
+        return lambda t: t.uniform_(-bound, bound, generator=generator)
+
+    def zeros(t):
+        return t.zero_()
+
+    for module in model.modules():
+        if isinstance(module, nn.Conv2d):
+            o, _, kh, kw = module.weight.shape
+            std = math.sqrt(2.0 / (o * kh * kw))
+            fill(module.weight,
+                 lambda t: t.normal_(0.0, std, generator=generator))
+            if module.bias is not None:
+                fill(module.bias, zeros)
+        elif isinstance(module, nn.Linear):
+            bound = 1.0 / math.sqrt(module.in_features)
+            fill(module.weight, uniform(bound))
+            if module.bias is not None:
+                fill(module.bias, uniform(bound))
+        elif isinstance(module, nn.RNNCellBase):
+            for p in module.parameters():
+                fill(p, uniform(1.0 / math.sqrt(module.hidden_size)))
+        elif isinstance(module, InstanceNorm) and module.weight is not None:
+            fill(module.weight, lambda t: t.fill_(1.0))
+            fill(module.bias, zeros)
+    for module in model.modules():
+        if isinstance(module, EyeNet):
+            fill(module.fc_to_gaze[2].weight, zeros)
+        elif isinstance(module, RefineNet):
+            fill(module.final[2].weight, zeros)
+            fill(module.final[2].bias, zeros)
+    return model
+
+
+def init_model(spec, generator, device='cuda'):
+    """A freshly initialised ``EVE`` on ``device`` (see ``init_weights``).
+
+    Built on the meta device and then filled, as ``build_model`` does.
+    """
+    with torch.device('meta'):
+        model = EVE(spec)
+    return init_weights(model.to_empty(device=device), generator)
 
 
 def build_model(spec, state_dict, device='cuda'):
@@ -337,11 +453,36 @@ def build_model(spec, state_dict, device='cuda'):
 # Labels
 # ----------------------------------------------------------------------
 
-def calculate_additional_labels(spec, batch):
-    """Derive the labels eve_tpu computes on the fly (inference half).
+def draw_kappas(spec, batch_size, generator):
+    """``(left, right)`` kappa offsets, (B, 2) float32 on the CPU.
 
-    The ground-truth heatmaps go through one launch of the render kernel on
-    the card, all three sigmas and the validity mask at once.
+    ``std * N(0, 1)`` per clip and eye, std the augmentation sigma in
+    radians; with ``refine_net_offset_augmentation_zero_prob`` > 0 one
+    keep/zero draw per clip, shared by both eyes. Drawn on a CPU generator,
+    so a seed gives the same kappas whatever device the model runs on.
+    """
+    if generator is None or generator.device.type != 'cpu':
+        raise ValueError('the kappa augmentation draws on a CPU '
+                         'torch.Generator; got %r' % (generator,))
+    std = math.radians(spec.refine_net_offset_augmentation_sigma)
+    kappas = [std * torch.randn((batch_size, 2), generator=generator)
+              for _ in range(2)]
+    zp = float(spec.refine_net_offset_augmentation_zero_prob)
+    if zp > 0.0:
+        keep = (torch.rand((batch_size, 1), generator=generator)
+                >= zp).float()
+        kappas = [k * keep for k in kappas]
+    return kappas
+
+
+def calculate_additional_labels(spec, batch, generator=None, training=False):
+    """Derive the labels eve_tpu computes on the fly.
+
+    In training with the offset augmentation, the per-clip kappas
+    (``left_kappa_fake``/``right_kappa_fake``, (B, T, 2)) are drawn on
+    ``generator`` unless the batch carries both. The ground-truth heatmaps
+    go through one launch of the render kernel on the card, all three
+    sigmas and the validity mask at once.
     """
     labels = {}
     mm_per_px = batch.get('millimeters_per_pixel')
@@ -350,6 +491,18 @@ def calculate_additional_labels(spec, batch):
         if k in batch:
             labels[side + '_PoG_cm_tobii'] = batch[k] * 0.1 * mm_per_px
             labels[side + '_PoG_cm_tobii_validity'] = batch[k + '_validity']
+
+    if training and spec.refine_net_do_offset_augmentation:
+        if ('left_kappa_fake' in batch) != ('right_kappa_fake' in batch):
+            raise ValueError('inject both left_kappa_fake and '
+                             'right_kappa_fake, or neither')
+        if 'left_kappa_fake' not in batch:
+            B, T = batch['left_eye_patch'].shape[:2]
+            device = batch['left_eye_patch'].device
+            for side, kappa in zip(('left', 'right'),
+                                   draw_kappas(spec, B, generator)):
+                labels[side + '_kappa_fake'] = kappa.to(device)[:, None, :] \
+                    .expand(B, T, 2)
 
     if 'left_o' in batch:
         labels['o'] = 0.5 * (batch['left_o'] + batch['right_o'])
@@ -447,26 +600,30 @@ def init_stream_state(spec, batch_size, device=None):
 # Losses and metrics
 # ----------------------------------------------------------------------
 
-def calculate_losses_and_metrics(full, interm, output):
-    """eve_tpu's losses and metrics for an inference forward.
+def calculate_losses_and_metrics(full, interm, output, do_aug=False):
+    """eve_tpu's losses and metrics.
 
-    Without offset augmentation (a training-only step) the plain keys hold
-    the predictions, so no *_unaugmented branch exists.
+    With the offset augmentation (``do_aug``) the initial losses read the
+    *_unaugmented branch; without it the plain keys hold the predictions.
     """
     for side in ('left', 'right'):
+        suffix = '_initial_unaugmented' if do_aug else '_initial'
         gt = side + '_g_tobii'
-        pred_key = side + '_g_initial'
+        pred_key = side + '_g' + suffix
         if pred_key in interm and gt in full:
-            output['loss_ang_' + pred_key] = losses_lib.angular_loss(
-                interm[pred_key], full[gt], full[gt + '_validity'])
+            output['loss_ang_' + side + '_g_initial'] = \
+                losses_lib.angular_loss(interm[pred_key], full[gt],
+                                        full[gt + '_validity'])
 
         gt = side + '_PoG_cm_tobii'
-        pred_key = side + '_PoG_cm_initial'
+        pred_key = side + '_PoG_cm' + suffix
         if pred_key in interm and gt in full:
-            output['loss_mse_' + pred_key] = losses_lib.mse_loss(
-                interm[pred_key], full[gt], full[gt + '_validity'])
-            output['metric_euc_' + pred_key] = losses_lib.euclidean_loss(
-                interm[pred_key], full[gt], full[gt + '_validity'])
+            output['loss_mse_' + side + '_PoG_cm_initial'] = \
+                losses_lib.mse_loss(interm[pred_key], full[gt],
+                                    full[gt + '_validity'])
+            output['metric_euc_' + side + '_PoG_cm_initial'] = \
+                losses_lib.euclidean_loss(interm[pred_key], full[gt],
+                                          full[gt + '_validity'])
 
         gt = side + '_PoG_tobii'
         pred_key = side + '_PoG_px_initial'
@@ -491,9 +648,10 @@ def calculate_losses_and_metrics(full, interm, output):
             interm['left_PoG_cm_initial'], interm['right_PoG_cm_initial'],
             lr_validity)
 
-    if 'heatmap_initial' in interm and 'heatmap_initial' in full:
+    pred_key = 'heatmap_initial_unaugmented' if do_aug else 'heatmap_initial'
+    if pred_key in interm and 'heatmap_initial' in full:
         output['loss_ce_heatmap_initial'] = losses_lib.cross_entropy_loss(
-            interm['heatmap_initial'], full['heatmap_initial'],
+            interm[pred_key], full['heatmap_initial'],
             full['heatmap_initial_validity'])
 
     if 'heatmap_final' in interm and 'heatmap_final' in full:
@@ -503,6 +661,18 @@ def calculate_losses_and_metrics(full, interm, output):
         output['loss_mse_heatmap_final'] = losses_lib.mse_loss(
             interm['heatmap_final'], full['heatmap_final'],
             full['heatmap_final_validity'])
+
+    if do_aug:
+        for pred_key, gt, fn, name in (
+                ('PoG_px_initial_unaugmented', 'PoG_px_tobii',
+                 losses_lib.euclidean_loss, 'metric_euc_'),
+                ('PoG_cm_initial_unaugmented', 'PoG_cm_tobii',
+                 losses_lib.euclidean_loss, 'metric_euc_'),
+                ('g_initial_unaugmented', 'g',
+                 losses_lib.angular_loss, 'metric_ang_')):
+            if pred_key in interm and gt in full:
+                output[name + pred_key] = fn(
+                    interm[pred_key], full[gt], full[gt + '_validity'])
 
     for pred_key, gt in (('PoG_px_initial', 'PoG_px_tobii'),
                          ('PoG_cm_initial', 'PoG_cm_tobii'),

@@ -1,0 +1,206 @@
+"""Checkpoints in eve_tpu's on-disk layout, written and read by the port.
+
+The counterpart of ``eve_tpu/train/checkpoint.py``. A checkpoint is a
+directory ``<run>/checkpoints/%07d.ckpt`` (the number counts completed
+training steps) holding one ``<prefix>.npz`` per top-level submodule
+(``eye_net``, ``refine_net``): eve_tpu's parameter tree of that submodule,
+'/'-flattened (``flatten_tree``), in eve_tpu's layouts
+(``utils.convert.eve_params``). So eve_tpu's ``CheckpointManager.load``
+reads the port's parameters, and the port reads eve_tpu's.
+
+The optimizer state goes to a file of the port's own,
+``optimizer_torch.npz``: Adam's moments and step count per parameter name,
+and, mid-way through a gradient accumulation, the gradients summed so far.
+eve_tpu skips ``optimizer_*`` files when it reads parameters. A run of the
+port resumes exactly; a run of eve_tpu resumes with a fresh optimizer, and
+the log says so (its optax moments are not carried over).
+
+Writes are atomic (a ``.tmp`` directory, then a rename), the newest
+``keep_n`` are kept, and ``save_at_step(wait=False)`` hands the file write
+to a background thread after a synchronous host snapshot, so the written
+bytes are exactly this step's state.
+"""
+
+import logging
+import os
+import shutil
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from eve_tpu_torch.utils import convert
+from eve_tpu_torch.utils.checkpoint import (
+    available_checkpoints, load_params, unflatten_tree)
+
+logger = logging.getLogger(__name__)
+
+_SUFFIX = '.ckpt'
+OPTIMIZER_FILE = 'optimizer_torch.npz'
+# eve_tpu's optimizer files (optax state), not read by the port.
+FOREIGN_OPTIMIZER_FILES = ('optimizer_0.npz', 'optimizer_0.msgpack')
+
+
+def flatten_tree(tree, prefix=()):
+    """Nested dicts of arrays -> ``{'a/b/c': array}``."""
+    out = {}
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, dict):
+            out.update(flatten_tree(value, path))
+        else:
+            out['/'.join(path)] = np.asarray(value)
+    return out
+
+
+def _host(tensor):
+    return tensor.detach().to('cpu', copy=True)
+
+
+def snapshot(state):
+    """The state's parameters, optimizer state and partial gradients as
+    CPU tensors the caller owns (a synchronous copy off the device)."""
+    model, optimizer = state.model, state.optimizer
+    names = {p: n for n, p in model.named_parameters()}
+    params = {k: _host(v) for k, v in model.state_dict().items()}
+    opt = {}
+    sd = optimizer.state_dict()
+    ordered = [p for g in optimizer.param_groups for p in g['params']]
+    for index, values in sd['state'].items():
+        name = names[ordered[index]]
+        for k, v in values.items():
+            opt['state/%s/%s' % (name, k)] = _host(torch.as_tensor(v))
+    if state.step % state.accumulation_steps:
+        for p in ordered:
+            if p.grad is not None:
+                opt['grad/' + names[p]] = _host(p.grad)
+    return params, opt
+
+
+class CheckpointManager:
+    """Save, load and prune checkpoints of a ``TrainState``."""
+
+    def __init__(self, output_dir, keep_n=3):
+        self.output_dir = output_dir
+        self.keep_n = keep_n
+        self._writer = None   # created at the first background save
+        self._pending = None  # the outstanding background write, if any
+
+    @property
+    def checkpoint_dir(self):
+        return os.path.join(self.output_dir, 'checkpoints')
+
+    def _step_dir(self, step):
+        return os.path.join(self.checkpoint_dir, ('%07d' % step) + _SUFFIX)
+
+    def save_at_step(self, step, state, wait=True):
+        """Write the state as checkpoint ``step``; returns its directory.
+
+        ``wait=False`` returns after the host snapshot and writes on a
+        background thread; its error surfaces at the next save, load,
+        ``wait_for_writes`` or ``close``.
+        """
+        # At most one snapshot alive: join the previous write first.
+        self.wait_for_writes()
+        params, opt = snapshot(state)
+        if wait:
+            return self._write(step, params, opt)
+        if self._writer is None:
+            self._writer = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix='ckpt-writer')
+        self._pending = self._writer.submit(self._write, step, params, opt)
+        return self._step_dir(step)
+
+    def wait_for_writes(self):
+        """Join the outstanding background write, re-raising its error."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            pending.result()
+
+    def close(self):
+        """Finish the outstanding write and stop the writer thread."""
+        try:
+            self.wait_for_writes()
+        finally:
+            if self._writer is not None:
+                self._writer.shutdown(wait=True)
+                self._writer = None
+
+    def _write(self, step, params, opt):
+        final_dir = self._step_dir(step)
+        tmp_dir = final_dir + '.tmp'
+        if os.path.isdir(tmp_dir):
+            shutil.rmtree(tmp_dir)
+        os.makedirs(tmp_dir)
+        tree = convert.eve_params({k: v.numpy() for k, v in params.items()})
+        for prefix, subtree in tree.items():
+            np.savez(os.path.join(tmp_dir, prefix + '.npz'),
+                     **flatten_tree(subtree))
+        np.savez(os.path.join(tmp_dir, OPTIMIZER_FILE),
+                 **{k: v.numpy() for k, v in opt.items()})
+        if os.path.isdir(final_dir):
+            shutil.rmtree(final_dir)
+        os.rename(tmp_dir, final_dir)
+        logger.info('> Saved parameters to: %s', final_dir)
+        self._prune()
+        return final_dir
+
+    def _prune(self):
+        available = available_checkpoints(self.output_dir)
+        for _, path in available[:max(len(available) - self.keep_n, 0)]:
+            shutil.rmtree(path)
+            logger.info('> Removed checkpoint: %s', path)
+
+    def load(self, path, state, load_optimizer=True):
+        """Load checkpoint directory ``path`` into ``state``; returns the
+        step it records. Submodules without a file keep their values."""
+        self.wait_for_writes()
+        model = state.model
+        sd = convert.eve_state_dict(load_params(path))
+        unexpected = sorted(set(sd) - set(model.state_dict()))
+        if unexpected:
+            raise KeyError('checkpoint %s holds parameters the model does '
+                           'not have: %s' % (path, unexpected[:5]))
+        model.load_state_dict(sd, strict=False)
+        step = int(os.path.basename(path)[:-len(_SUFFIX)])
+        state.step = step
+        opt_path = os.path.join(path, OPTIMIZER_FILE)
+        if load_optimizer and os.path.isfile(opt_path):
+            with np.load(opt_path) as data:
+                _load_optimizer(state, unflatten_tree(
+                    {k: data[k] for k in data.files}))
+            logger.info('> Loaded optimizer state from: %s', opt_path)
+        elif load_optimizer and any(
+                os.path.isfile(os.path.join(path, f))
+                for f in FOREIGN_OPTIMIZER_FILES):
+            logger.warning(
+                '> %s holds eve_tpu optimizer state (optax), which the port '
+                'does not read: resuming with a fresh optimizer', path)
+        return step
+
+    def load_last_checkpoint(self, state, load_optimizer=True):
+        """Load the newest checkpoint; returns its step, or 0 if none."""
+        self.wait_for_writes()
+        available = available_checkpoints(self.output_dir)
+        if not available:
+            return 0
+        return self.load(available[-1][1], state,
+                         load_optimizer=load_optimizer)
+
+
+def _load_optimizer(state, tree):
+    """Restore Adam's per-parameter state (and partial gradients) by
+    parameter name."""
+    optimizer = state.optimizer
+    params = dict(state.model.named_parameters())
+    ordered = [p for g in optimizer.param_groups for p in g['params']]
+    index = {id(p): i for i, p in enumerate(ordered)}
+    sd = optimizer.state_dict()
+    sd['state'] = {}
+    for name, values in tree.get('state', {}).items():
+        sd['state'][index[id(params[name])]] = {
+            k: torch.from_numpy(np.asarray(v)) for k, v in values.items()}
+    optimizer.load_state_dict(sd)
+    for name, g in tree.get('grad', {}).items():
+        p = params[name]
+        p.grad = torch.from_numpy(np.asarray(g)).to(p.device)

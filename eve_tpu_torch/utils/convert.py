@@ -8,6 +8,10 @@ maps onto them with the reference's own key mapping; this is a copy of
 ``eye_net_params_to_torch`` / ``refine_net_params_to_torch`` from
 ``eve_tpu/utils/torch_convert.py``. The released reference ``.pt`` files
 then load into the same modules with plain ``load_state_dict``.
+
+``eve_params`` is the inverse: a state dict of the port's ``EVE`` back to
+eve_tpu's tree, which the checkpoint writer stores in eve_tpu's layout.
+Both directions only transpose float32 arrays, so a round trip is exact.
 """
 
 import numpy as np
@@ -22,6 +26,18 @@ def _conv(v):
 def _linear(v):
     """flax (I, O) -> torch (O, I)."""
     return np.ascontiguousarray(np.asarray(v).T)
+
+
+def _conv_back(v):
+    """torch (O, I, KH, KW) -> flax (KH, KW, I, O)."""
+    return np.ascontiguousarray(np.transpose(v, (2, 3, 1, 0)))
+
+
+def _put(tree, path, value):
+    node = tree
+    for part in path[:-1]:
+        node = node.setdefault(part, {})
+    node[path[-1]] = value
 
 
 def eye_net_state_dict(params):
@@ -117,3 +133,81 @@ def eve_state_dict(params):
                        params['refine_net']).items()})
     return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in sd.items()}
+
+
+_PREACT_BACK = {v: k for k, v in _PREACT.items()}
+
+
+def _layer_back(leaf, v):
+    """A conv or instance-norm entry: ``(flax leaf name, value)``."""
+    if leaf == 'bias':
+        return 'bias', v
+    return ('kernel', _conv_back(v)) if v.ndim == 4 else ('scale', v)
+
+
+def eye_net_params(state_dict):
+    """Reference-named EyeNet state dict -> eve_tpu EyeNet params tree."""
+    tree = {}
+    for key, v in state_dict.items():
+        v = np.asarray(v, np.float32)
+        parts = key.split('.')
+        if parts[0] == 'cnn_layers':
+            if parts[1] == 'conv1':
+                _put(tree, ('cnn', 'conv1', 'kernel'), _conv_back(v))
+            elif parts[1] == 'fc':
+                _put(tree, ('cnn', 'fc', 'kernel' if parts[2] == 'weight'
+                            else 'bias'), _linear(v) if v.ndim == 2 else v)
+            else:  # layerN.i.{conv1,conv2,downsample.0}.weight
+                conv = ('downsample_conv' if parts[3] == 'downsample'
+                        else parts[3])
+                _put(tree, ('cnn', '%s_%s' % (parts[1], parts[2]), conv,
+                            'kernel'), _conv_back(v))
+        elif parts[0] == 'rnn_cells':
+            _put(tree, ('rnn_cell_' + parts[1], parts[2]), v)
+        else:  # fc_common.0.weight and the other Linear stacks
+            _put(tree, ('%s_%s' % (parts[0], parts[1]),
+                        'kernel' if parts[2] == 'weight' else 'bias'),
+                 _linear(v) if v.ndim == 2 else v)
+    return tree
+
+
+def refine_net_params(state_dict):
+    """Reference-named RefineNet state dict -> eve_tpu RefineNet tree."""
+    tree = {}
+    for key, v in state_dict.items():
+        v = np.asarray(v, np.float32)
+        parts = key.split('.')
+        if parts[0] in ('initial', 'final'):
+            leaf, value = _layer_back(parts[2], v)
+            _put(tree, ('%s_%s' % (parts[0], parts[1]), leaf), value)
+            continue
+        k = 0
+        parts = parts[1:]  # 'network'
+        while parts[0] == 'between_module':
+            k += 1
+            parts = parts[1:]
+        if parts[0] == 'rnn_cells':
+            leaf, value = _layer_back(parts[3], v)
+            _put(tree, ('rnn_cell_' + parts[1], parts[2], leaf), value)
+        else:  # {encoder,decoder}_blocks.i.{layers,skip_layer}.N.leaf
+            kind = 'enc' if parts[0] == 'encoder_blocks' else 'dec'
+            leaf, value = _layer_back(parts[4], v)
+            _put(tree, ('%s%d_%s' % (kind, k, parts[1]),
+                        _PREACT_BACK['%s.%s' % (parts[2], parts[3])], leaf),
+                 value)
+    return tree
+
+
+def eve_params(state_dict):
+    """State dict of the port's ``EVE`` -> eve_tpu ``{'eye_net': ...,
+    'refine_net': ...}`` tree of float32 numpy arrays."""
+    subs = {}
+    for key, v in state_dict.items():
+        prefix, rest = key.split('.', 1)
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        subs.setdefault(prefix, {})[rest] = v
+    out = {'eye_net': eye_net_params(subs['eye_net'])}
+    if 'refine_net' in subs:
+        out['refine_net'] = refine_net_params(subs['refine_net'])
+    return out
