@@ -7,12 +7,14 @@
    versions); exits non-zero without a card.
 2. Builds the CUDA kernels from ``eve_tpu_torch/csrc`` with nvcc.
 3. Kernel phase: holds each kernel against its plain PyTorch version on the
-   card at N=0, 1, 17, 80, 240 (render for sigma 10, 3, 5 one at a time
+   card at N=0, 1, 17, 30, 80, 240, 3840 (render for sigma 10, 3, 5 one at
+   a time, sigmas 10 and 3 in one launch as ``create_images`` draws them,
    and all three with a validity mask in one launch; soft-argmax of 72x128
    maps in float32 and bfloat16, and of 144x256 maps at N=1, 17, 80; one
    backward through each ``autograd.Function``). Times both at the serving
-   path's shapes (render also at S=3) beside an empty kernel of the same
-   launch shape, the launch floor.
+   path's N=80 and the Codalab path's N=3840 (render also at S=3) beside an
+   empty kernel of the same launch shape, the launch floor, and checks the
+   soft-argmax's cluster choice at N=3840.
 4. Serve phase: the full-width ``configs/refine_net.json`` model (128x128
    eyes, CLSTM RefineNet, screen content) on seeded random weights, behind
    ``ServingEngine(device='cuda', max_batch=8)``: 8 sessions x 3 consecutive
@@ -38,7 +40,28 @@
    prints step time, frames/s, peak memory, a profile of one step (the
    heatmap kernels' share included) and its forward, backward and update
    times.
-6. Prints the kernel table as one JSON line, the card, and last
+6. Eval phase: the full-width ``configs/refine_net.json`` model on seeded
+   random weights, written as a checkpoint in eve_tpu's layout with the
+   port's ``train/checkpoint`` writer and read back bitwise through
+   ``infer.model_setup(resume_from=...)``. (b) One synthetic labelled video
+   of 3 x 30 frames streams at batch 1 through
+   ``infer.iterator(streaming=True, create_images=True)``: every image
+   output finite, the PoGs equal to one T=90 forward, the first chunk's
+   outputs equal to the port's CPU forward, render 2 and soft-argmax 1
+   launches a chunk. (c) 136 synthetic clips of T=30 without gaze labels,
+   in 4 (participant, subfolder, camera) sequences, go through the port's
+   ``DataLoader`` at ``codalab_eval_batch_size`` 128 (a full batch and a
+   ragged one), ``infer.iterator(create_images=False,
+   materialize_inputs=False)``, ``eval_codalab.collect`` and
+   ``write_submission``: the nesting, lengths and int64 stamps of the
+   pkl.gz, the zip, the ragged batch's clips against the same clips inside
+   a full batch, render 1 and soft-argmax 1 launches a batch. Prints eval
+   clips/s and frames/s, batch wall times, the device-busy share of one
+   profiled batch and the peak memory. The EVE dataset reader and the
+   overlay video (``h5py``, ``cv2``, ``ffmpeg``, which the card's machine
+   lacks) are held against eve_tpu by the CPU tests instead; here the clips
+   are in memory.
+7. Prints the kernel table as one JSON line, the card, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the run exits non-zero without the last line.
@@ -60,8 +83,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, 'configs', 'refine_net.json')
-# Run directories of the training phase (git-ignored).
+# Run directories of the training and eval phases (git-ignored).
 TRAIN_OUT = os.path.join(ROOT, 'build', 'chip_smoke_train')
+EVAL_OUT = os.path.join(ROOT, 'build', 'chip_smoke_eval')
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and float32
 # (non-tensor-core) operations/s.
@@ -82,9 +106,10 @@ CPU_PX_ATOL = 5e-2
 OTHER_ATOL = 1e-3
 
 SESSIONS, CHUNKS, T, MAX_BATCH = 8, 3, 10, 8
-# Map counts the kernel phase holds the kernels at (80 = the serving shape,
-# 240 = the training shape).
-KERNEL_NS = (0, 1, 17, 80, 240)
+# Map counts the kernel phase holds the kernels at (30 = a streamed chunk,
+# 80 = the serving shape, 240 = the training shape, 3840 = a Codalab
+# batch).
+KERNEL_NS = (0, 1, 17, 30, 80, 240, 3840)
 
 # Training phase: configs/refine_net.json's batch and clip length, 8
 # optimizer steps (one epoch of TRAIN_STEPS batches), a checkpoint and a
@@ -117,6 +142,20 @@ RESUME_LOSS_TOL = dict(rtol=1e-3, atol=1e-5)
 CMP_LOSS_TOL = dict(rtol=1e-4, atol=1e-6)
 CMP_GRAD_L2, CMP_GRAD_ELEM, CMP_PERTURB = 3e-2, 0.1, 1e-7
 CMP_CARD_STEPS = 4
+
+# Eval phase: clips of EVAL_T frames; a video of STREAM_CHUNKS clips
+# streamed at batch 1; CODALAB_CLIPS clips in CODALAB_SEQUENCES sequences
+# at configs/refine_net.json's codalab_eval_batch_size (128: one full
+# batch and a ragged one of 8).
+EVAL_T, STREAM_CHUNKS = 30, 3
+CODALAB_BATCH, CODALAB_CLIPS, CODALAB_SEQUENCES = 128, 136, 4
+CODALAB_N = CODALAB_BATCH * EVAL_T   # maps a Codalab batch renders
+# Card vs CPU, the create_images maps of one streamed chunk: a heatmap lies
+# in [0, 1] and moves with the PoG it is drawn at (CPU_PX_ATOL of PoG, 3e-3
+# grid cells, moves a sigma-3 map by up to 7e-4) or with RefineNet's
+# float32 output; a history sums at most EVAL_T decayed maps.
+MAP_ATOL = 1e-3
+HISTORY_ATOL = EVAL_T * MAP_ATOL
 
 
 def log(*args):
@@ -211,6 +250,14 @@ def kernel_phase(hk):
                          **RENDER_TOL)
             errs['render_heatmaps'] = max(errs['render_heatmaps'],
                                           max_err(ours[0], ref))
+        # create_images' form: the initial and the history sigma, one launch.
+        ours = hk.render_heatmaps(c, sigmas[:2])
+        ref = hk.make_heatmaps_multi_plain(c, sigmas[:2])
+        torch.cuda.synchronize()
+        assert ours.shape == (2, n, 72, 128)
+        assert_close(ours, ref, 'render S=2 N=%d' % n, **RENDER_TOL)
+        errs['render_heatmaps'] = max(errs['render_heatmaps'],
+                                      max_err(ours, ref))
         # The label path's form: three sigmas and a validity mask, one
         # launch; the NaN centre under mask 0 stays NaN, as hm * mask does.
         cm, mask = _masked_centres(gen, n, dev)
@@ -265,8 +312,8 @@ def kernel_phase(hk):
         assert_close(xi.grad, xr.grad, 'soft_argmax backward N=%d' % n,
                      rtol=1e-4, atol=1e-4 * float(xr.grad.abs().max()))
     log('kernel phase: kernels match their plain versions at N=%s (render '
-        'S=1 and S=3 masked; soft-argmax 72x128 and 144x256), backward at '
-        'N=80 and %d; max abs err render %.3g, soft-argmax %.3g px'
+        'S=1, S=2 and S=3 masked; soft-argmax 72x128 and 144x256), backward '
+        'at N=80 and %d; max abs err render %.3g, soft-argmax %.3g px'
         % (list(KERNEL_NS), TRAIN_B * TRAIN_T, errs['render_heatmaps'],
            errs['soft_argmax']))
     return errs
@@ -333,9 +380,16 @@ def kernel_timings(hk, n):
                 name, n, rows[name]['ms'], rows[name]['plain_ms'],
                 rows[name]['bound_ms'], rows[name]['bound_by'],
                 rows[name]['launch_floor_ms']))
-    log('launch shapes: render %d CTAs (S=1), %d CTAs (S=3); soft-argmax '
-        '%d CTAs in clusters of %d; %d SMs'
-        % (render_ctas, render3_ctas, n * cluster, cluster, sms))
+    log('launch shapes at N=%d: render %d CTAs (S=1), %d CTAs (S=3); '
+        'soft-argmax %d CTAs in clusters of %d; %d SMs'
+        % (n, render_ctas, render3_ctas, n * cluster, cluster, sms))
+    # The cluster choice: the smallest cluster that fills the SMs, so a
+    # large N runs one CTA a map.
+    if cluster not in hk.SOFT_ARGMAX_CLUSTERS or (
+            n * cluster < sms and cluster != hk.SOFT_ARGMAX_CLUSTERS[-1]) or (
+            cluster > 1 and n * (cluster // 2) >= sms):
+        raise AssertionError('soft-argmax cluster %d at N=%d on %d SMs'
+                             % (cluster, n, sms))
     return rows
 
 
@@ -473,13 +527,20 @@ def forward_clips(model, clips, device):
 
 def profile_forward(model, clips, steps=3):
     """Where one dispatch's time goes: wall ms, device-busy ms, top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     from eve_tpu_torch.models import eve as eve_lib
     batch = eve_lib.batch_to_tensors(
         {k: np.stack([c[k] for c in clips]) for k in clips[0]}, 'cuda')
+    profile_batch(model, batch, 'profile: forward B=%d T=%d'
+                  % (len(clips), T), steps)
+
+
+def profile_batch(model, batch, what, steps=3, warmup=2):
+    """Wall ms, device-busy ms and top kernels of a forward of ``batch``
+    (device tensors); returns the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
     with torch.inference_mode():
-        for _ in range(2):
+        for _ in range(warmup):
             model(batch, output_predictions=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -497,14 +558,15 @@ def profile_forward(model, clips, steps=3):
                and e.self_cpu_time_total == 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels) / steps
-    log('profile: forward B=%d T=%d: %.2f ms wall, %.2f ms device busy '
-        '(%.0f%%), %.0f kernel launches'
-        % (len(clips), T, wall_ms, busy_ms, 100 * busy_ms / wall_ms,
-           launches))
+    log('%s: %.2f ms wall, %.2f ms device busy (%.0f%%), %.0f kernel '
+        'launches' % (what, wall_ms, busy_ms, 100 * busy_ms / wall_ms,
+                      launches))
+    prefix = what.split(':')[0]
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        log('profile:   %8.3f ms %5.0fx  %s'
-            % (e.self_device_time_total / 1e3 / steps, e.count / steps,
-               e.key[:90]))
+        log('%s:   %8.3f ms %5.0fx  %s'
+            % (prefix, e.self_device_time_total / 1e3 / steps,
+               e.count / steps, e.key[:90]))
+    return busy_ms / wall_ms
 
 
 def serve_phase(hk):
@@ -947,6 +1009,262 @@ def training_phase(hk, card):
             'busy': busy}
 
 
+# ---------------------------------------------------------------------------
+# Eval phase
+# ---------------------------------------------------------------------------
+
+LABEL_SUFFIXES = ('_tobii', '_tobii_validity', '_p', '_p_validity')
+
+
+class EvalClips:
+    """``n`` synthetic clips of ``t`` frames as the dataset reader gives
+    them: uint8 frames, int64 nanosecond stamps, the sequence strings.
+    Clip i belongs to sequence ``i * sequences // n``, whose stamps run on
+    from clip to clip; without ``labels`` the gaze labels are dropped, as
+    the test split withholds them."""
+
+    def __init__(self, seed, n, t, sequences=1, labels=True):
+        from eve_tpu_torch.data.synthetic import make_synthetic_batch
+        batch = make_synthetic_batch(np.random.RandomState(seed),
+                                     batch_size=n, sequence_len=t,
+                                     eyes_size=128, frame_dtype=np.uint8)
+        if not labels:
+            batch = {k: v for k, v in batch.items()
+                     if not k.endswith(LABEL_SUFFIXES)}
+        per_seq = -(-n // sequences)
+        self.clips = []
+        for i in range(n):
+            seq, pos = divmod(i, per_seq)
+            clip = {k: v[i] for k, v in batch.items()}
+            clip['timestamps'] = (int(1.6e18) + int(1e12) * seq +
+                                  (pos * t + np.arange(t)) * 33333333
+                                  ).astype(np.int64)
+            clip.update(participant='test%02d' % (seq // 2 + 1),
+                        subfolder='step%03d_image_eval' % (seq % 2 + 1),
+                        camera='webcam_c')
+            self.clips.append(clip)
+
+    def __len__(self):
+        return len(self.clips)
+
+    def __getitem__(self, i):
+        return self.clips[i]
+
+    def sequence(self, participant, subfolder, camera):
+        return [c for c in self.clips if (c['participant'], c['subfolder'],
+                                          c['camera']) ==
+                (participant, subfolder, camera)]
+
+
+def eval_config(**overrides):
+    from eve_tpu_torch.config import Config
+    config = Config()
+    config.import_json(CONFIG)
+    config.import_dict(overrides)
+    return config
+
+
+def check_finite(outputs, keys, what):
+    for k in keys:
+        if k not in outputs or not np.all(np.isfinite(outputs[k])):
+            raise AssertionError('%s: %s missing or not finite' % (what, k))
+
+
+def eval_phase(hk, card):
+    """Weights from a run directory, streaming inference with
+    create_images, and the Codalab collection and submission."""
+    from eve_tpu_torch import infer
+    from eve_tpu_torch.cli import eval_codalab
+    from eve_tpu_torch.data.loader import DataLoader, rebase_timestamps
+    from eve_tpu_torch.models import eve as eve_lib
+    from eve_tpu_torch.train import step as step_lib
+    from eve_tpu_torch.train.checkpoint import CheckpointManager
+
+    shutil.rmtree(EVAL_OUT, ignore_errors=True)
+    run_dir = os.path.join(EVAL_OUT, 'run')
+    config = eval_config(resume_from=run_dir)
+    spec = eve_lib.EveSpec.from_config(config)
+
+    # --- (a) weights from a run directory, bitwise ---
+    with torch.device('meta'):  # names and shapes only
+        skeleton = eve_lib.EVE(spec)
+    state_dict = random_state_dict(skeleton, seed=21)
+    cpu_model = eve_lib.build_model(spec, state_dict, 'cpu')
+    CheckpointManager(run_dir).save_at_step(
+        1, step_lib.create_train_state(config, cpu_model, 1))
+    model = infer.model_setup(config, device=card)
+    loaded = model.state_dict()
+    if set(loaded) != set(state_dict) or not all(
+            torch.equal(loaded[k].cpu(), v) for k, v in state_dict.items()):
+        raise AssertionError('weights read back from %s differ' % run_dir)
+    log('eval: %d tensors written to %s and read back bitwise through '
+        'infer.model_setup' % (len(state_dict), os.path.relpath(run_dir,
+                                                                 ROOT)))
+
+    # --- (b) streaming inference with create_images, counted ---
+    video = EvalClips(31, STREAM_CHUNKS, EVAL_T)
+    image_keys = ('screen_frame', 'initial_gaze_history', 'initial_heatmap',
+                  'final_heatmap', 'refined_gaze_history', 'gt_heatmap',
+                  'left_g_gt', 'PoG_px_gt', 'left_g_initial',
+                  'PoG_px_initial', 'g_final', 'PoG_px_final')
+    list(infer.iterator(model, DataLoader(video, 1, num_workers=0),
+                        streaming=True))  # warm-up
+    streamed, stream_launches = counted(hk, lambda: list(infer.iterator(
+        model, DataLoader(video, 1, num_workers=0), streaming=True)))
+    log('eval: streamed %d chunks of T=%d at batch 1: kernel launches %s'
+        % (STREAM_CHUNKS, EVAL_T, stream_launches))
+    if stream_launches != {'render_heatmaps': 2 * STREAM_CHUNKS,
+                           'soft_argmax': STREAM_CHUNKS}:
+        raise AssertionError('streaming launched %s, want render 2 and '
+                             'soft-argmax 1 a chunk' % stream_launches)
+    for step, _, out in streamed:
+        check_finite(out, image_keys, 'streamed chunk %d' % step)
+    whole_batch = {k: np.stack([np.concatenate([c[k] for c in video.clips])])
+                   for k in video[0] if k not in ('participant', 'subfolder',
+                                                  'camera')}
+    whole_batch['timestamps'] = rebase_timestamps(whole_batch['timestamps'])
+    with torch.inference_mode():
+        whole = model(eve_lib.batch_to_tensors(whole_batch, card),
+                      output_predictions=True)
+    got = {k: np.concatenate([o[k][0] for _, _, o in streamed])
+           for k in ('PoG_px_initial', 'PoG_px_final', 'g_final',
+                     'left_pupil_size')}
+    stream_errs = compare(got, {k: v[0].cpu().numpy()
+                                for k, v in whole.items() if k in got},
+                          'streamed chunks vs one T=%d forward'
+                          % (STREAM_CHUNKS * EVAL_T), CHUNK_PX_ATOL)
+    log('eval: streamed chunks vs one T=%d forward, max abs err %s'
+        % (STREAM_CHUNKS * EVAL_T, json.dumps(stream_errs)))
+    cpu_first = next(infer.iterator(cpu_model, DataLoader(
+        video, 1, num_workers=0), streaming=True))[2]
+    first = streamed[0][2]
+    compare(first, cpu_first, 'streamed chunk 0 card vs CPU', CPU_PX_ATOL)
+    map_errs = {}
+    for k in ('initial_heatmap', 'final_heatmap', 'gt_heatmap',
+              'initial_gaze_history', 'refined_gaze_history',
+              'screen_frame'):
+        map_errs[k] = float(np.abs(first[k] - cpu_first[k]).max())
+        atol = HISTORY_ATOL if k.endswith('history') else MAP_ATOL
+        if not np.allclose(first[k], cpu_first[k], rtol=1e-4, atol=atol):
+            raise AssertionError('chunk 0 %s: card vs CPU differ by %g '
+                                 '(atol %g)' % (k, map_errs[k], atol))
+    log('eval: chunk 0 card vs CPU, create_images maps max abs err %s'
+        % json.dumps(map_errs))
+
+    # --- (c) the Codalab collection and submission, counted ---
+    clips = EvalClips(41, CODALAB_CLIPS, EVAL_T,
+                      sequences=CODALAB_SEQUENCES, labels=False)
+    batch_size = config.codalab_eval_batch_size
+    if batch_size != CODALAB_BATCH:
+        raise AssertionError('codalab_eval_batch_size %d' % batch_size)
+
+    def loader(indices=None):
+        return DataLoader(clips, batch_size, indices=indices,
+                          num_workers=config.codalab_eval_data_workers)
+
+    kept, walls = [], []
+
+    def observed(batches):
+        """Keep each batch's outputs and its wall time (loading, copies,
+        forward and the copy back), then pass the batch on."""
+        t0 = time.perf_counter()
+        for item in batches:
+            walls.append(time.perf_counter() - t0)
+            kept.append(item[2])
+            yield item
+            t0 = time.perf_counter()
+
+    next(infer.iterator(model, loader(range(batch_size)),
+                        create_images=False,
+                        materialize_inputs=False))  # warm-up
+    torch.cuda.reset_peak_memory_stats(card)
+    start = time.perf_counter()
+    outputs_to_write, launches = counted(hk, lambda: eval_codalab.collect(
+        observed(infer.iterator(model, loader(), create_images=False,
+                                materialize_inputs=False))))
+    wall = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated(card)
+    n_batches = len(kept)
+    pkl_path, zip_path = eval_codalab.write_submission(outputs_to_write,
+                                                       EVAL_OUT)
+    log('eval: Codalab, %d clips of T=%d in %d batches of up to %d: kernel '
+        'launches %s' % (CODALAB_CLIPS, EVAL_T, n_batches, batch_size,
+                         launches))
+    if n_batches != -(-CODALAB_CLIPS // batch_size) or launches != {
+            'render_heatmaps': n_batches, 'soft_argmax': n_batches}:
+        raise AssertionError('Codalab: %d batches, launches %s, want render '
+                             '1 and soft-argmax 1 a batch'
+                             % (n_batches, launches))
+    log('eval: Codalab %.1f clips/s, %.1f frames/s (%.3f s for %d clips, '
+        'loading and copies included); batch walls %s s; peak device '
+        'memory %.2f GiB at batch %d (%s)'
+        % (CODALAB_CLIPS / wall, CODALAB_CLIPS * EVAL_T / wall, wall,
+           CODALAB_CLIPS, ', '.join('%.3f' % w for w in walls),
+           peak / 2 ** 30, batch_size, card_line()))
+
+    # The submission: nesting, keys, lengths, int64 stamps, the zip.
+    import gzip
+    import pickle
+    import zipfile
+    with gzip.open(pkl_path, 'rb') as f:
+        written = pickle.load(f)
+    with zipfile.ZipFile(zip_path) as zf:
+        if zf.namelist() != [os.path.basename(pkl_path)]:
+            raise AssertionError('zip holds %s' % zf.namelist())
+    sequences = sorted({(c['participant'], c['subfolder'], c['camera'])
+                        for c in clips.clips})
+    found = sorted((p, s, c) for p, subs in written.items()
+                   for s, cams in subs.items() for c in cams)
+    if found != sequences:
+        raise AssertionError('submission sequences %s, want %s'
+                             % (found, sequences))
+    for key in sequences:
+        entry = written[key[0]][key[1]][key[2]]
+        seq_clips = clips.sequence(*key)
+        n = len(seq_clips) * EVAL_T
+        stamps = np.concatenate([c['timestamps'] for c in seq_clips])
+        if sorted(entry) != sorted(eval_codalab.KEYS_TO_STORE) or \
+                entry['timestamps'].dtype != np.int64 or \
+                not np.array_equal(entry['timestamps'], stamps) or \
+                entry['PoG_px_final'].shape != (n, 2) or \
+                entry['left_pupil_size'].shape != (n,):
+            raise AssertionError('submission entry %s: %s' % (key, {
+                k: (v.shape, v.dtype) for k, v in entry.items()}))
+        check_finite(entry, eval_codalab.KEYS_TO_STORE, 'entry %s' % (key,))
+    log('eval: %s (%d bytes) and its zip: %d sequences of %s frames, int64 '
+        'stamps equal to the input stamps' % (
+            os.path.relpath(pkl_path, ROOT), os.path.getsize(pkl_path),
+            len(sequences), sorted({len(c) * EVAL_T for c in (
+                clips.sequence(*k) for k in sequences)})))
+
+    # The ragged batch's clips against the same clips inside a full batch.
+    ragged = kept[-1]
+    m = ragged['PoG_px_final'].shape[0]
+    full = next(infer.iterator(model, loader(range(CODALAB_CLIPS - batch_size,
+                                                   CODALAB_CLIPS)),
+                               create_images=False,
+                               materialize_inputs=False))[2]
+    ragged_errs = compare(ragged, {k: v[-m:] for k, v in full.items()
+                                   if np.ndim(v)},
+                          'ragged batch vs full batch', CHUNK_PX_ATOL)
+    log('eval: the ragged batch of %d clips vs the same clips in a full '
+        'batch, max abs err %s' % (m, json.dumps(ragged_errs)))
+
+    # Where one full batch's time goes.
+    from eve_tpu_torch.data.loader import collate, to_device
+    device_batch, _ = to_device(collate(clips.clips[:batch_size]), card)
+    busy = profile_batch(model, device_batch, 'eval profile: Codalab batch '
+                         'B=%d T=%d' % (batch_size, EVAL_T), steps=1,
+                         warmup=0)
+    return {'launches': {k: stream_launches[k] + launches[k]
+                         for k in launches},
+            'per_chunk': {k: v // STREAM_CHUNKS
+                          for k, v in stream_launches.items()},
+            'per_batch': {k: v // n_batches for k, v in launches.items()},
+            'frames_per_s': CODALAB_CLIPS * EVAL_T / wall, 'peak': peak,
+            'busy': busy}
+
+
 def main():
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA card visible (torch.cuda.is_available() '
@@ -974,8 +1292,10 @@ def main():
 
     errs = kernel_phase(hk)
     timings = kernel_timings(hk, SESSIONS * T)
+    timings_eval = kernel_timings(hk, CODALAB_N)
     launches = serve_phase(hk)
     train = training_phase(hk, torch.device('cuda', 0))
+    evals = eval_phase(hk, torch.device('cuda', 0))
 
     source = 'eve_tpu_torch/csrc/heatmap_kernels.cu'
     replaces = {'render_heatmaps': 'eve_tpu/kernels/heatmap_kernels.py:38',
@@ -986,9 +1306,15 @@ def main():
                      'train_launches': train['launches'][name],
                      'launches_per_train_step': train['per_step'][name],
                      'launches_per_eval_batch': train['per_eval_batch'][name],
-                     'max_abs_err': errs[name]}, **timings[name])
+                     'eval_launches': evals['launches'][name],
+                     'launches_per_streamed_chunk': evals['per_chunk'][name],
+                     'launches_per_codalab_batch': evals['per_batch'][name],
+                     'max_abs_err': errs[name],
+                     'n%d' % CODALAB_N: timings_eval[name]},
+                    **timings[name])
                for name in ('render_heatmaps', 'soft_argmax')]
     kernels[0]['s3'] = timings['render_heatmaps_s3']
+    kernels[0]['n%d_s3' % CODALAB_N] = timings_eval['render_heatmaps_s3']
     log(json.dumps({'kernels': kernels}))
     log('card:', card_line())
     log(json.dumps({'ok': True, 'device': {

@@ -12,10 +12,13 @@ effect, as in eve_tpu.
 Keys that ``eve_tpu`` knows but the port does not read yet fall in two
 groups (see ROADMAP.md):
 
-- ``DEFERRED_KEYS`` (the dataset reader, evaluation, export, images): a
-  JSON file may set them and they are ignored, because nothing the port
-  runs depends on them;
-- ``UNIMPLEMENTED_KEYS`` (training options of later slices): they raise
+- ``DEFERRED_KEYS`` (export, the opt-in topology, multi-host): a JSON file
+  may set them and they are ignored, because nothing the port runs depends
+  on them. ``tpu_on_device_preprocess`` and ``use_native_framepack`` stay
+  here for good: the port's dataset reader always emits uint8 frames, which
+  the model normalises on the device, so there is no host-side float
+  packing to switch;
+- ``UNIMPLEMENTED_KEYS`` (options of later slices): they raise
   ``NotImplementedError`` when set to anything but their default, so a run
   never silently differs from the one its config describes.
 
@@ -34,22 +37,17 @@ logger = logging.getLogger(__name__)
 # slice that uses them lands (see ROADMAP.md). ``tpu_use_pallas`` stays
 # here for good: the port always launches its kernels on a CUDA tensor.
 DEFERRED_KEYS = frozenset((
-    'gaze_history_map_decay_per_ms', 'tpu_native_refine_head',
-    'tpu_native_stem', 'assumed_frame_rate', 'camera_frame_type',
-    'codalab_eval_batch_size', 'codalab_eval_data_workers', 'datasrc_eve',
-    'export_batch_size', 'export_path', 'export_streaming', 'eyes_size',
-    'face_size', 'frame_cache_dir', 'frame_cache_gb', 'full_test_batch_size',
-    'full_test_data_workers', 'inference_streaming', 'input_path',
-    'load_full_frame_for_visualization', 'max_sequence_len', 'note',
-    'output_path', 'prefetch_buffer_size', 'test_cameras', 'test_stimuli',
-    'tpu_compile_cache_dir', 'tpu_coordinator_address', 'tpu_num_devices',
-    'tpu_num_processes', 'tpu_on_device_preprocess', 'tpu_process_id',
-    'tpu_use_pallas', 'train_cameras', 'train_stimuli',
-    'use_native_framepack', 'video_decoder_codec',
+    'tpu_native_refine_head', 'tpu_native_stem', 'export_batch_size',
+    'export_path', 'export_streaming', 'frame_cache_gb',
+    'full_test_batch_size', 'full_test_data_workers', 'note',
+    'prefetch_buffer_size', 'tpu_compile_cache_dir',
+    'tpu_coordinator_address', 'tpu_num_processes',
+    'tpu_on_device_preprocess', 'tpu_process_id', 'tpu_use_pallas',
+    'use_native_framepack',
 ))
 
-# Training options of later slices, with eve_tpu's defaults: any other
-# value raises (NotImplementedError) instead of being ignored.
+# Options of later slices, with eve_tpu's defaults: any other value raises
+# (NotImplementedError) instead of being ignored.
 UNIMPLEMENTED_KEYS = {
     'train_batch_echoing': 1,
     'tpu_remat': 'none',
@@ -61,6 +59,8 @@ UNIMPLEMENTED_KEYS = {
     'gsheet_workbook_key': '',
     'skip_training': False,
     'auto_resume': False,
+    # The decode-once disk frame cache (eve_tpu/data/framecache.py).
+    'frame_cache_dir': '',
 }
 
 
@@ -79,10 +79,40 @@ class Config:
     CLI overrides.
     """
 
-    # Data shapes the model sees
+    # Data source: the root of the EVE dataset
+    datasrc_eve = '/path/to/eve/dataset'
+
+    # Data loading (the reader decodes on the host with ffmpeg or cv2)
+    video_decoder_codec = 'libx264'  # only libx264 is decoded
+    assumed_frame_rate = 10  # Frames are skipped from source videos accordingly
+    max_sequence_len = 30  # In frames assuming 10 Hz
+    face_size = [256, 256]  # width, height
+    eyes_size = [128, 128]  # width, height
     screen_size = [128, 72]  # width, height
     actual_screen_size = [1920, 1080]  # DO NOT CHANGE
+    camera_frame_type = 'eyes'  # full | face | eyes
     load_screen_content = False
+    load_full_frame_for_visualization = False
+
+    train_cameras = ['basler', 'webcam_l', 'webcam_c', 'webcam_r']
+    train_stimuli = ['image', 'video', 'wikipedia']
+    test_cameras = ['basler', 'webcam_l', 'webcam_c', 'webcam_r']
+    test_stimuli = ['image', 'video', 'wikipedia']
+
+    # Inference: the input video and the overlay video written
+    input_path = ''
+    output_path = ''
+    # Carry the recurrent state across consecutive clips of the input video
+    # (cli/inference.py) instead of resetting it at every clip.
+    inference_streaming = False
+
+    # Codalab evaluation (cli/eval_codalab.py)
+    codalab_eval_batch_size = 128
+    codalab_eval_data_workers = 1
+
+    # Devices of the data-parallel mesh; 0 = all. The port runs one device:
+    # an eval entry point raises above 1 (multi-GPU is a later slice).
+    tpu_num_devices = 0
 
     # Run directory to load weights from, or to resume training
     resume_from = ''
@@ -174,6 +204,7 @@ class Config:
     gaze_heatmap_sigma_initial = 10.0  # in pixels
     gaze_heatmap_sigma_history = 3.0  # in pixels
     gaze_heatmap_sigma_final = 5.0  # in pixels
+    gaze_history_map_decay_per_ms = 0.999
 
     # Compute type of the networks: 'float32' (bfloat16 is a later slice).
     tpu_compute_dtype = 'float32'
@@ -240,6 +271,12 @@ class Config:
                 raise TypeError(
                     'Type mismatch for key "%s": expected %s, got %s'
                     % (key, expected.__name__, type(value).__name__))
+            if key == 'video_decoder_codec' and value not in ('libx264', ''):
+                logger.warning(
+                    'video_decoder_codec=%r is not supported: frames are '
+                    'decoded on the host CPU (ffmpeg or cv2, the libx264 '
+                    'path); the key is accepted for config compatibility '
+                    'only.', value)
             if not isinstance(vars(type(self)).get(key), property):
                 setattr(self, key, value)
 

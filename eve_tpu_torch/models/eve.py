@@ -23,9 +23,15 @@ drawn on a CPU ``torch.Generator`` so that the card and the CPU draw the
 same kappas, or injected as ``left_kappa_fake``/``right_kappa_fake``), and
 the initial losses read the unaugmented ``*_unaugmented`` branch. With
 ``eye_net_frozen`` EyeNet's parameters do not require gradients and its
-stages run under ``torch.no_grad()``. The bfloat16 compute type, the opt-in
-TPU-native topology, the sequence mesh and rematerialization are later
-slices.
+stages run under ``torch.no_grad()``.
+
+``forward(create_images=True)`` adds eve_tpu's image outputs: the last
+frame's screen, initial, refined and ground-truth heatmaps, and, with
+labels, the decayed gaze histories. The history-sigma map of the initial
+estimate is rendered in the same launch as the initial heatmap (a second
+sigma), so the render still launches once for the estimate and once for
+the labels. The bfloat16 compute type, the opt-in TPU-native topology, the
+sequence mesh and rematerialization are later slices.
 """
 
 import contextlib
@@ -74,6 +80,7 @@ class EveSpec:
     gaze_heatmap_sigma_initial: float = 10.0
     gaze_heatmap_sigma_history: float = 3.0
     gaze_heatmap_sigma_final: float = 5.0
+    gaze_history_map_decay_per_ms: float = 0.999
     actual_screen_size: Tuple[int, int] = (1920, 1080)
     screen_size: Tuple[int, int] = (128, 72)
     # Loss coefficients
@@ -122,6 +129,8 @@ class EveSpec:
             gaze_heatmap_sigma_initial=config.gaze_heatmap_sigma_initial,
             gaze_heatmap_sigma_history=config.gaze_heatmap_sigma_history,
             gaze_heatmap_sigma_final=config.gaze_heatmap_sigma_final,
+            gaze_history_map_decay_per_ms=(
+                config.gaze_history_map_decay_per_ms),
             actual_screen_size=tuple(config.actual_screen_size),
             screen_size=tuple(config.screen_size),
             loss_coeff_g_ang_initial=config.loss_coeff_g_ang_initial,
@@ -210,12 +219,13 @@ class EVE(nn.Module):
             self.eye_net.requires_grad_(False)
 
     def forward(self, batch, training=False, generator=None,
-                output_predictions=False, initial_states=None,
-                return_states=False):
+                output_predictions=False, create_images=False,
+                initial_states=None, return_states=False):
         """Full EVE forward over a (B, T, ...) clip batch of tensors.
 
         Returns the output dict of losses, metrics and (optionally)
-        predictions, with eve_tpu's key names; ``return_states`` adds the
+        predictions, with eve_tpu's key names; ``create_images`` adds the
+        image outputs (see the module docstring); ``return_states`` adds the
         final recurrent states (see ``init_stream_state``) under 'states'.
         ``training`` turns on the kappa offset augmentation, whose kappas
         are drawn on ``generator`` (a CPU ``torch.Generator``) unless the
@@ -260,8 +270,18 @@ class EVE(nn.Module):
             interm['left_g_initial'] = g_l
             interm['right_g_initial'] = g_r
         # --- Projection and the initial heatmap ---
-        for k, v in g_to_pog(spec, full, g_l, g_r).items():
+        # The gaze history is a visualisation of labelled clips only.
+        history = (create_images and spec.refine_net_enabled and
+                   'PoG_px_tobii' in full)
+        for k, v in g_to_pog(spec, full, g_l, g_r,
+                             with_history=history).items():
             interm[k + '_initial'] = v
+        if 'heatmap_history_initial' in interm:
+            interm['history_initial'] = hm_ops.decayed_history_scan(
+                interm.pop('heatmap_history_initial'),
+                full['timestamps'].float(),
+                full['PoG_px_tobii_validity'].float(),
+                decay_per_ms=spec.gaze_history_map_decay_per_ms)
 
         # --- Stages 4-6: RefineNet ---
         if refine_net is not None and 'heatmap_initial' in interm:
@@ -301,6 +321,14 @@ class EVE(nn.Module):
             interm['g_final'] = geo.calculate_combined_gaze_direction(
                 full['o'], 10.0 * interm['PoG_cm_final'],
                 full['left_R'], full['camera_transformation'])
+            if history:
+                # The refined history accumulates the refined heatmaps
+                # themselves, the initial one history-sigma Gaussians.
+                interm['history_final'] = hm_ops.decayed_history_scan(
+                    interm['heatmap_final'].float(),
+                    full['timestamps'].float(),
+                    full['PoG_px_tobii_validity'].float(),
+                    decay_per_ms=spec.gaze_history_map_decay_per_ms)
 
         # --- Outputs ---
         output = {'left_pupil_size': interm['left_pupil_size'],
@@ -323,6 +351,8 @@ class EVE(nn.Module):
                 for k in ('g_final', 'PoG_px_final', 'PoG_cm_final'):
                     if k in interm:
                         output[k] = interm[k]
+        if create_images:
+            output.update(image_outputs(spec, full, interm))
 
         calculate_losses_and_metrics(full, interm, output, do_aug)
         output['full_loss'] = _full_loss(spec, output, feats.device)
@@ -541,11 +571,39 @@ def calculate_additional_labels(spec, batch, generator=None, training=False):
     return labels
 
 
-def g_to_pog(spec, full, g_left, g_right):
+def image_outputs(spec, full, interm):
+    """eve_tpu's ``create_images`` outputs: the last frame's maps, the
+    gazes and the ground truth."""
+    out = {}
+    if spec.load_screen_content and 'screen_frame' in full:
+        out['screen_frame'] = _screen_to_float(full['screen_frame'][:, -1])
+    for name, key in (('initial_gaze_history', 'history_initial'),
+                      ('initial_heatmap', 'heatmap_initial'),
+                      ('final_heatmap', 'heatmap_final'),
+                      ('refined_gaze_history', 'history_final')):
+        if key in interm:
+            out[name] = interm[key][:, -1]
+    if 'heatmap_final' in full:
+        out['gt_heatmap'] = full['heatmap_final'][:, -1]
+    if 'left_g_tobii' in full:
+        out['left_g_gt'] = full['left_g_tobii']
+        out['PoG_px_gt'] = full.get('PoG_px_tobii')
+        out['PoG_px_gt_validity'] = full.get('PoG_px_tobii_validity')
+    out['left_g_initial'] = interm['left_g_initial']
+    if 'PoG_px_initial' in interm:
+        out['PoG_px_initial'] = interm['PoG_px_initial']
+    if 'g_final' in interm:
+        out['g_final'] = interm['g_final']
+        out['PoG_px_final'] = interm['PoG_px_final']
+    return {k: v for k, v in out.items() if v is not None}
+
+
+def g_to_pog(spec, full, g_left, g_right, with_history=False):
     """Project per-eye gazes to the screen, average, derive combined gaze.
 
     With RefineNet enabled, also renders the initial-sigma heatmap at the
-    mean PoG (the render kernel on the card).
+    mean PoG (the render kernel on the card); ``with_history`` renders the
+    history-sigma map (``heatmap_history``) in the same launch.
     """
     out = {}
     if 'inv_camera_transformation' not in full:
@@ -565,10 +623,15 @@ def g_to_pog(spec, full, g_left, g_right):
         full['o'], out['PoG_mm'], full['left_R'],
         full['camera_transformation'])
     if spec.refine_net_enabled:
-        out['heatmap'] = hm_ops.make_heatmaps_fast(
-            out['PoG_px'], spec.gaze_heatmap_sigma_initial,
-            heatmap_size=spec.gaze_heatmap_size,
+        sigmas = (spec.gaze_heatmap_sigma_initial,)
+        if with_history:
+            sigmas += (spec.gaze_heatmap_sigma_history,)
+        maps = hm_ops.make_heatmaps_multi_fast(
+            out['PoG_px'], sigmas, heatmap_size=spec.gaze_heatmap_size,
             actual_screen_size=spec.actual_screen_size)
+        out['heatmap'] = maps[0]
+        if with_history:
+            out['heatmap_history'] = maps[1]
     return out
 
 

@@ -36,8 +36,7 @@ from eve_tpu_torch.models import eve as eve_lib
 from eve_tpu_torch.train import step as step_lib
 from eve_tpu_torch.train.checkpoint import CheckpointManager
 from eve_tpu_torch.train.logging_utils import Tensorboard
-from eve_tpu_torch.utils import convert
-from eve_tpu_torch.utils.checkpoint import unflatten_tree
+from eve_tpu_torch.utils import load_model
 
 logger = logging.getLogger(__name__)
 
@@ -115,60 +114,30 @@ def config_identity_hash(config):
                        ).hexdigest()[:6]
 
 
-def pretrained_filename(config, which, ext):
-    """eve_tpu's release name: ``eve_eyenet_<RNN|static>`` and
-    ``eve_refinenet_<RNN|static>[_oa][_skip]``, plus ``ext``."""
-    if which == 'eye_net':
-        name = 'eve_eyenet_' + (config.eye_net_rnn_type
-                                if config.eye_net_use_rnn else 'static')
-    else:
-        name = 'eve_refinenet_' + (config.refine_net_rnn_type
-                                   if config.refine_net_use_rnn else 'static')
-        name += '_oa' if config.refine_net_do_offset_augmentation else ''
-        name += '_skip' if config.refine_net_use_skip_connections else ''
-    return name + ext
-
-
 def bootstrap_pretrained(config, model, pretrained_dir=None):
     """Load the pretrained submodules the config asks for; returns their
     names.
 
-    Searched in ``pretrained_dir`` and ``$EVE_PRETRAINED_DIR``: eve_tpu's
-    native file (a checkpoint's ``<submodule>.npz`` under the release name
-    with ``.npz``) loads; the released reference ``.pt`` is not read yet;
-    with neither present this raises, so a run never trains against a
-    random EyeNet that its config says is pretrained.
+    Searched in ``pretrained_dir`` and ``$EVE_PRETRAINED_DIR``
+    (``utils.load_model``): eve_tpu's native ``.npz`` first, then the
+    released reference ``.pt``. With neither present this raises, so a run
+    never trains against a random EyeNet that its config says is
+    pretrained.
     """
     wanted = (['eye_net'] if config.eye_net_load_pretrained else []) + (
         ['refine_net'] if config.refine_net_enabled and
         config.refine_net_load_pretrained else [])
-    search = [d for d in (pretrained_dir, os.environ.get('EVE_PRETRAINED_DIR'))
-              if d]
     for which in wanted:
-        npz, pt = (pretrained_filename(config, which, ext)
-                   for ext in ('.npz', '.pt'))
-        native = [os.path.join(d, npz) for d in search
-                  if os.path.isfile(os.path.join(d, npz))]
-        if native:
-            with np.load(native[0]) as data:
-                tree = unflatten_tree({k: data[k] for k in data.files})
-            to_sd = (convert.eye_net_state_dict if which == 'eye_net'
-                     else convert.refine_net_state_dict)
-            getattr(model, which).load_state_dict(
-                {k: torch.from_numpy(np.array(v, np.float32))
-                 for k, v in to_sd(tree).items()}, strict=True)
-            logger.info('Loaded pretrained %s from %s', which, native[0])
-        elif any(os.path.isfile(os.path.join(d, pt)) for d in search):
-            raise NotImplementedError(
-                'config.%s_load_pretrained: loading the released %s is not '
-                'ported yet (ROADMAP.md); an eve_tpu-native %s loads'
-                % (which, pt, npz))
-        else:
+        if not load_model.load_pretrained_into(model, config, which,
+                                               pretrained_dir):
             raise FileNotFoundError(
                 'config.%s_load_pretrained is set but neither %s nor %s was '
                 'found (searched: %s); refusing to train against a randomly '
-                'initialised %s' % (which, npz, pt, search or ['<unset>'],
-                                    which))
+                'initialised %s' % (
+                    which, *(load_model.pretrained_filename(config, which, e)
+                             for e in ('.npz', '.pt')),
+                    load_model.search_dirs(pretrained_dir) or ['<unset>'],
+                    which))
     return wanted
 
 

@@ -122,17 +122,21 @@ def refine_net_state_dict(params):
     return sd
 
 
+def submodule_state_dict(which, tree):
+    """eve_tpu tree of submodule ``which`` (``'eye_net'`` or
+    ``'refine_net'``) -> its state dict (CPU float32 tensors)."""
+    to_sd = (eye_net_state_dict if which == 'eye_net'
+             else refine_net_state_dict)
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in to_sd(tree).items()}
+
+
 def eve_state_dict(params):
     """eve_tpu ``{'eye_net': ..., 'refine_net': ...}`` tree -> state dict of
     the port's ``EVE`` model (CPU float32 tensors)."""
-    sd = {'eye_net.' + k: v
-          for k, v in eye_net_state_dict(params['eye_net']).items()}
-    if 'refine_net' in params:
-        sd.update({'refine_net.' + k: v
-                   for k, v in refine_net_state_dict(
-                       params['refine_net']).items()})
-    return {k: torch.from_numpy(np.array(v, np.float32))
-            for k, v in sd.items()}
+    return {'%s.%s' % (which, k): v
+            for which in ('eye_net', 'refine_net') if which in params
+            for k, v in submodule_state_dict(which, params[which]).items()}
 
 
 _PREACT_BACK = {v: k for k, v in _PREACT.items()}

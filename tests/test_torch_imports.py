@@ -3,7 +3,9 @@
 A subprocess imports every module of ``eve_tpu_torch`` and then checks
 ``sys.modules``; an AST walk checks that no file of the package, and not
 ``chip_smoke.py``, names ``jax``, ``flax``, ``optax`` or ``eve_tpu`` in an
-import.
+import. The same subprocess checks that importing the package pulls in
+neither ``h5py`` nor ``cv2``, which the card's machine does not have: the
+dataset reader and the overlay import them where they read or draw.
 """
 
 import ast
@@ -16,6 +18,8 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, 'eve_tpu_torch')
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'eve_tpu')
+# Host libraries of the reader and the overlay, imported on first use.
+LAZY = ('h5py', 'cv2')
 
 
 def _package_files():
@@ -35,13 +39,14 @@ def _module_names():
 
 def test_importing_every_module_pulls_in_no_jax():
     modules = sorted(_module_names())
-    assert 'eve_tpu_torch.serve' in modules
+    assert {'eve_tpu_torch.serve', 'eve_tpu_torch.data.dataset',
+            'eve_tpu_torch.cli.inference'} <= set(modules)
     code = (
         'import importlib, json, sys\n'
         'for m in %r:\n'
         '    importlib.import_module(m)\n'
         'print(json.dumps(sorted(m for m in sys.modules\n'
-        '    if m.split(".")[0] in %r)))\n' % (modules, FORBIDDEN))
+        '    if m.split(".")[0] in %r)))\n' % (modules, FORBIDDEN + LAZY))
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300,

@@ -167,11 +167,14 @@ def test_missing_pretrained_weights_raise(tmp_path, monkeypatch):
             exp.build_training(1)
     finally:
         exp.close()
-    # The released .pt is not read yet: it raises too, naming the file.
-    open(tmp_path / 'eve_eyenet_GRU.pt', 'w').close()
-    with pytest.raises(NotImplementedError, match='eve_eyenet_GRU.pt'):
-        harness.bootstrap_pretrained(cfg, model, str(tmp_path))
-    # An eve_tpu-native file loads.
+    # The released .pt (a reference-named state dict) loads.
+    released = teve.init_model(spec, torch.Generator().manual_seed(2), 'cpu')
+    torch.save(released.eye_net.state_dict(), tmp_path / 'eve_eyenet_GRU.pt')
+    assert harness.bootstrap_pretrained(cfg, model, str(tmp_path)) == \
+        ['eye_net']
+    for k, v in released.eye_net.state_dict().items():
+        assert torch.equal(model.eye_net.state_dict()[k], v), k
+    # An eve_tpu-native file loads, before the .pt beside it.
     other = teve.init_model(spec, torch.Generator().manual_seed(1), 'cpu')
     tree = convert.eve_params(other.state_dict())['eye_net']
     np.savez(tmp_path / 'eve_eyenet_GRU.npz', **tckpt.flatten_tree(tree))
