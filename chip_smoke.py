@@ -30,7 +30,8 @@
    skips), ``batch_size`` 8, T = 30, ``eye_net_load_pretrained`` overridden
    to false (seeded ``init_weights`` instead), trained through
    ``harness.Experiment``, ``init_datasets`` and ``main_loop_iterator`` on
-   an in-memory dataset of synthetic clips: 8 optimizer steps with a
+   an in-memory dataset of synthetic clips (a class with the EVE reader's
+   constructor, so the harness's spec tuples build it): 8 optimizer steps with a
    checkpoint and a live validation at step 4, then a fresh ``Experiment``
    resumed from that checkpoint runs steps 5-8 again. Checks finite
    losses, a bitwise unchanged EyeNet and a changed RefineNet, the
@@ -40,7 +41,30 @@
    prints step time, frames/s, peak memory, a profile of one step (the
    heatmap kernels' share included) and its forward, backward and update
    times.
-6. Eval phase: the full-width ``configs/refine_net.json`` model on seeded
+6. Train-CLI phase: (a) ``eve_tpu_torch.cli.train.run`` (the CLI after its
+   dataset specs) in child processes, on in-memory clips:
+   ``configs/refine_net.json`` at full width, ``eye_net_load_pretrained``
+   false, ``fully_reproducible``, ``--auto-resume yes``, checkpoints, live
+   validation and images every 4 steps, the profiler on, a 1/100 learning
+   rate (see CLI_BASE_LR), 96 clips (12 steps) and the final full test.
+   An uninterrupted run; then a run that gets SIGTERM once its log shows
+   step 6, which must exit 143 within a minute with a checkpoint at the
+   step its log names, and a restart with the same argv, which must log
+   ``auto_resume: continuing <dir>``, take the remaining steps, run the
+   final test and exit 0. Checks the losses of the preempted and resumed
+   run against the uninterrupted run's within ``RESUME_LOSS_TOL`` (and that
+   they leave it shifted by a step), eve_tpu's image tags, finite and in
+   [0, 1], at steps 4, 8 and 12, a non-empty profiler trace, and the
+   kernel launches of the whole run. (b) ``train_batch_echoing`` 2 with
+   two training sources for 4 steps in process: half as many batches
+   loaded as steps, render 6 and soft-argmax 2 launches a step (twice one
+   source's), ``full_loss`` the sum of the sources'. (c)
+   ``configs/eye_net.json`` at its own width (B = 16, T = 30, EyeNet
+   trainable) for 6 steps: step time, frames/s, peak memory, a profiled
+   step, no heatmap kernel launched, and one B = 2, T = 10 step against the
+   CPU (with cuDNN and without it) with the CPU's own spread under a 1e-7
+   weight perturbation printed beside it.
+7. Eval phase: the full-width ``configs/refine_net.json`` model on seeded
    random weights, written as a checkpoint in eve_tpu's layout with the
    port's ``train/checkpoint`` writer and read back bitwise through
    ``infer.model_setup(resume_from=...)``. (b) One synthetic labelled video
@@ -61,7 +85,7 @@
    overlay video (``h5py``, ``cv2``, ``ffmpeg``, which the card's machine
    lacks) are held against eve_tpu by the CPU tests instead; here the clips
    are in memory.
-7. Prints the kernel table as one JSON line, the card, and last
+8. Prints the kernel table as one JSON line, the card, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the run exits non-zero without the last line.
@@ -73,6 +97,7 @@ import io
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -86,6 +111,7 @@ CONFIG = os.path.join(ROOT, 'configs', 'refine_net.json')
 # Run directories of the training and eval phases (git-ignored).
 TRAIN_OUT = os.path.join(ROOT, 'build', 'chip_smoke_train')
 EVAL_OUT = os.path.join(ROOT, 'build', 'chip_smoke_eval')
+CLI_OUT = os.path.join(ROOT, 'build', 'chip_smoke_cli')
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and float32
 # (non-tensor-core) operations/s.
@@ -142,6 +168,45 @@ RESUME_LOSS_TOL = dict(rtol=1e-3, atol=1e-5)
 CMP_LOSS_TOL = dict(rtol=1e-4, atol=1e-6)
 CMP_GRAD_L2, CMP_GRAD_ELEM, CMP_PERTURB = 3e-2, 0.1, 1e-7
 CMP_CARD_STEPS = 4
+
+# Train-CLI phase: configs/refine_net.json at B = TRAIN_B, T = TRAIN_T on
+# CLI_CLIPS clips (one epoch of CLI_STEPS steps), a checkpoint, a live
+# validation and images every CLI_EVERY steps; SIGTERM once the log shows
+# step CLI_PREEMPT_AFTER, and the exit 143 within CLI_EXIT_TIMEOUT seconds.
+CLI_STEPS, CLI_EVERY, CLI_PREEMPT_AFTER, CLI_EXIT_TIMEOUT = 12, 4, 6, 60
+CLI_CLIPS = CLI_STEPS * TRAIN_B
+# The CLI runs' base_learning_rate, 1/100 of the config's: two
+# uninterrupted runs on the card are not bitwise equal (cuDNN's backward
+# and the upsample backward's atomics), and at the config's rate Adam
+# carries those last bits to 4e-4 of full_loss by step 4 and 1.2e-2 by
+# step 12 (measured), beyond RESUME_LOSS_TOL whatever the resume does.
+# At this rate a batch or kappa draw out of place still moves full_loss by
+# far more than the tolerance (checked in the run against the
+# uninterrupted losses shifted by a step).
+CLI_BASE_LR = 1e-5
+# Echoing and two sources: train_batch_echoing ECHO, ECHO_STEPS steps.
+ECHO, ECHO_STEPS = 2, 4
+# configs/eye_net.json: its batch of 16, EYE_STEPS steps; card vs CPU at
+# B = EYE_CMP_B, T = EYE_CMP_T. The CPU parity tests hold the EyeNet's
+# gradients against eve_tpu (tests/test_torch_train_step.py; 48x48 eyes,
+# T = 3) with each element within 2e-3 of its tensor's largest element and
+# each tensor's L2 error within 1e-3 of its norm. At full width those do
+# not hold, on the card nor between two CPU runs a rounding apart: the
+# CPU's own gradient moves by up to 1.8e-3 (element) and 3.2e-4 (L2) when
+# every weight is scaled by (1 + 1e-7 N(0, 1)), and the card's, whose
+# forward differs from the CPU's by ~1e-6 relative, by up to 2.0e-2 and
+# 2.1e-3, with cuDNN or without it (measured): ReLU gates and max-pool
+# windows that rounding tips one way or the other route the gradient of
+# 40 eyes of 128x128 otherwise, as in RefineNet. So the EyeNet is held as
+# the RefineNet is, each tensor within CMP_GRAD_L2 (L2) and CMP_GRAD_ELEM
+# (element), plus EYE_GRAD_TOP of the model's largest gradient (biases an
+# instance norm cancels have a true gradient of 0), with cuDNN and without
+# it (ATen's direct convolutions).
+EYE_B, EYE_STEPS = 16, 6
+EYE_CMP_B, EYE_CMP_T = 2, 10
+EYE_GRAD_TOP = 1e-5
+EYE_GRAD_LIMITS = {'card': (CMP_GRAD_ELEM, CMP_GRAD_L2),
+                   'card without cuDNN': (CMP_GRAD_ELEM, CMP_GRAD_L2)}
 
 # Eval phase: clips of EVAL_T frames; a video of STREAM_CHUNKS clips
 # streamed at batch 1; CODALAB_CLIPS clips in CODALAB_SEQUENCES sequences
@@ -686,22 +751,38 @@ def serve_phase(hk):
 # Training phase
 # ---------------------------------------------------------------------------
 
-class SyntheticClips:
-    """An in-memory dataset of synthetic clips ('disc' eyes, uint8
-    frames), built in one draw: ``dataset[i]`` is clip i's dict."""
+def synthetic_clips(seed, n, t, eyes=128):
+    """``n`` synthetic clips ('disc' eyes, uint8 frames) in one draw."""
+    from eve_tpu_torch.data.synthetic import make_synthetic_batch
+    batch = make_synthetic_batch(np.random.RandomState(seed), batch_size=n,
+                                 sequence_len=t, eyes_size=eyes,
+                                 frame_dtype=np.uint8)
+    return [{k: v[i] for k, v in batch.items()} for i in range(n)]
 
-    def __init__(self, seed, n, t, eyes=128):
-        from eve_tpu_torch.data.synthetic import make_synthetic_batch
-        batch = make_synthetic_batch(np.random.RandomState(seed),
-                                     batch_size=n, sequence_len=t,
-                                     eyes_size=eyes, frame_dtype=np.uint8)
-        self.clips = [{k: v[i] for k, v in batch.items()} for i in range(n)]
+
+class SyntheticClips:
+    """An in-memory dataset with the EVE reader's constructor, so the
+    harness's spec tuples and the final full test build it as they build
+    ``EVESequences_*``: ``path`` is ``(seed, number of clips)``, and the
+    clips have the config's ``max_sequence_len`` and ``eyes_size``."""
+
+    def __init__(self, path, config, cameras_to_use=None,
+                 types_of_stimuli=None, live_validation=False,
+                 is_final_test=False):
+        seed, n = path
+        self.clips = synthetic_clips(seed, n, config.max_sequence_len,
+                                     config.eyes_size[0])
 
     def __len__(self):
         return len(self.clips)
 
     def __getitem__(self, i):
         return self.clips[i]
+
+
+def spec(tag, seed, n):
+    """A harness spec tuple of ``n`` synthetic clips."""
+    return (tag, SyntheticClips, (seed, n), ['image'], ['webcam_c'])
 
 
 def train_config(**overrides):
@@ -739,8 +820,8 @@ def run_training(config, train_sets, test_sets, device, resume_from=''):
                              device=device)
     losses, walls = {}, []
     t0 = time.perf_counter()
-    for step, metrics in harness.main_loop_iterator(exp, train_data,
-                                                    test_data):
+    for step, metrics, _ in harness.main_loop_iterator(exp, train_data,
+                                                       test_data):
         losses[step] = float(metrics['full_loss'])
         if device.type == 'cuda':
             torch.cuda.synchronize()
@@ -754,7 +835,7 @@ def run_training(config, train_sets, test_sets, device, resume_from=''):
     return exp, losses, walls
 
 
-def profile_train_step(state, batch, device, steps=2):
+def profile_train_step(state, batch, device, steps=2, what='train profile'):
     """Wall ms, device-busy ms and top kernels of one training step."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -772,20 +853,19 @@ def profile_train_step(state, batch, device, steps=2):
                and e.self_cpu_time_total == 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels) / steps
-    log('train profile: step B=%d T=%d: %.2f ms wall (profiled), %.2f ms '
-        'device busy (%.0f%%), %.0f kernel launches'
-        % (TRAIN_B, TRAIN_T, wall_ms, busy_ms, 100 * busy_ms / wall_ms,
-           launches))
+    b, t = batch['left_eye_patch'].shape[:2]
+    log('%s: step B=%d T=%d: %.2f ms wall (profiled), %.2f ms device busy '
+        '(%.0f%%), %.0f kernel launches' % (
+            what, b, t, wall_ms, busy_ms, 100 * busy_ms / wall_ms, launches))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        log('train profile:   %8.3f ms %5.0fx  %s'
-            % (e.self_device_time_total / 1e3 / steps, e.count / steps,
+        log('%s:   %8.3f ms %5.0fx  %s'
+            % (what, e.self_device_time_total / 1e3 / steps, e.count / steps,
                e.key[:90]))
     heatmap_ms = sum(e.self_device_time_total for e in kernels
                      if 'render_heatmaps_kernel' in e.key or
                      'soft_argmax_kernel' in e.key) / 1e3 / steps
-    log('train profile: the two heatmap kernels %.4f ms of device time a '
-        'step (%.3f%% of the busy time)' % (heatmap_ms,
-                                           100 * heatmap_ms / busy_ms))
+    log('%s: the two heatmap kernels %.4f ms of device time a step (%.3f%% '
+        'of the busy time)' % (what, heatmap_ms, 100 * heatmap_ms / busy_ms))
 
     # Forward, backward and update, each timed with CUDA events.
     model = state.model
@@ -804,9 +884,9 @@ def profile_train_step(state, batch, device, steps=2):
         torch.cuda.synchronize(device)
         for j, name in enumerate(phases):
             phases[name].append(marks[j].elapsed_time(marks[j + 1]))
-    log('train profile: step phases (CUDA events, median of 3): %s'
-        % ', '.join('%s %.2f ms' % (k, float(np.median(v)))
-                    for k, v in phases.items()))
+    log('%s: step phases (CUDA events, median of 3): %s'
+        % (what, ', '.join('%s %.2f ms' % (k, float(np.median(v)))
+                           for k, v in phases.items())))
     return busy_ms / wall_ms
 
 
@@ -831,8 +911,8 @@ def compare_card_cpu(spec, card):
     with torch.device('meta'):  # names and shapes only
         skeleton = eve_lib.EVE(spec)
     state_dict = random_state_dict(skeleton, seed=5)
-    clips = SyntheticClips(7, CMP_B, CMP_T)
-    batch = {k: np.stack([c[k] for c in clips.clips]) for k in clips[0]}
+    clips = synthetic_clips(7, CMP_B, CMP_T)
+    batch = {k: np.stack([c[k] for c in clips]) for k in clips[0]}
     noise = torch.Generator().manual_seed(1)
     perturbed = {k: v * (1 + CMP_PERTURB * torch.randn(v.shape,
                                                        generator=noise))
@@ -905,15 +985,12 @@ def training_phase(hk, card):
     from eve_tpu_torch.train import step as step_lib
 
     shutil.rmtree(TRAIN_OUT, ignore_errors=True)
-    t0 = time.perf_counter()
-    train_sets = [('synthetic', SyntheticClips(11, TRAIN_B * TRAIN_STEPS,
-                                               TRAIN_T))]
-    test_sets = [('synthetic_val', SyntheticClips(12, VAL_CLIPS, TRAIN_T))]
-    log('train: %d training and %d validation clips of T=%d built in %.1f s;'
-        ' eye_net_load_pretrained overridden to false (seeded '
-        'init_weights, no released weights in the checkout)'
-        % (len(train_sets[0][1]), VAL_CLIPS, TRAIN_T,
-           time.perf_counter() - t0))
+    train_sets = [spec('synthetic', 11, TRAIN_B * TRAIN_STEPS)]
+    test_sets = [spec('synthetic_val', 12, VAL_CLIPS)]
+    log('train: %d training and %d validation clips of T=%d, built as the '
+        'harness builds them; eye_net_load_pretrained overridden to false '
+        '(seeded init_weights, no released weights in the checkout)'
+        % (TRAIN_B * TRAIN_STEPS, VAL_CLIPS, TRAIN_T))
 
     # --- the training main path, counted ---
     torch.cuda.reset_peak_memory_stats(card)
@@ -1007,6 +1084,467 @@ def training_phase(hk, card):
     return {'launches': launches, 'per_step': per_step,
             'per_eval_batch': per_eval, 'step_ms': 1e3 * step_s,
             'busy': busy}
+
+
+# ---------------------------------------------------------------------------
+# Train-CLI phase
+# ---------------------------------------------------------------------------
+
+def cli_argv(out_base):
+    """The command line of the preempted run: configs/refine_net.json at
+    full width, checkpoints, live validation and images every CLI_EVERY
+    steps, the profiler on, ``--auto-resume yes``."""
+    return [CONFIG, '--eye-net-load-pretrained', 'no',
+            '--fully-reproducible', 'yes', '--auto-resume', 'yes',
+            '--num-epochs', '1', '--base-learning-rate', str(CLI_BASE_LR),
+            '--checkpoints-save-every-n-steps', str(CLI_EVERY),
+            '--test-every-n-steps', str(CLI_EVERY),
+            '--tensorboard-images-every-n-steps', str(CLI_EVERY),
+            '--test-num-samples', str(VAL_CLIPS),
+            '--test-batch-size', str(TRAIN_B),
+            '--full-test-batch-size', str(TRAIN_B),
+            '--full-test-data-workers', '2', '--train-data-workers', '4',
+            '--profile-dir', os.path.join(out_base, 'profile'),
+            '--device', 'cuda']
+
+
+def train_cli_child(args):
+    """A child process of the train-CLI phase: ``cli.train.run`` on
+    in-memory clips with ``cli_argv``; writes what it saw (each step's
+    full_loss and wall time, the images, the final test, the kernel
+    launches of the whole run) to a JSON file, also when it exits 143."""
+    record_path, out_base = args
+    sys.path.insert(0, ROOT)
+    from eve_tpu_torch.cli import train as train_cli
+    from eve_tpu_torch.kernels import heatmap_kernels as hk
+    from eve_tpu_torch.train import harness
+
+    record = {'started': time.time(), 'losses': {}, 'walls': {},
+              'images': {}, 'final_test': None}
+    loop, final_test = harness.main_loop_iterator, harness.do_final_full_test
+
+    def observed_loop(exp, train_data, test_data):
+        t0 = time.perf_counter()
+        for step, metrics, images in loop(exp, train_data, test_data):
+            record['losses'][step] = float(metrics['full_loss'])  # syncs
+            record['walls'][step] = time.perf_counter() - t0
+            record.setdefault('first_step', time.time())
+            record['images'][step] = {
+                tag: [list(img.shape), float(np.min(img)), float(np.max(img)),
+                      bool(np.isfinite(img).all())]
+                for tag, img in images.items()}
+            yield step, metrics, images
+            t0 = time.perf_counter()
+
+    def observed_final_test(exp, test_data):
+        record['final_test'] = final_test(exp, test_data)
+        return record['final_test']
+
+    harness.main_loop_iterator = observed_loop
+    harness.do_final_full_test = observed_final_test
+    config, parsed = harness.script_init_common(cli_argv(out_base))
+    hk.reset_launch_counts()
+    try:
+        train_cli.run(config, parsed.device,
+                      [spec('synthetic', 11, CLI_CLIPS)],
+                      [spec('synthetic_val', 12, VAL_CLIPS)],
+                      output_dir_base=out_base)
+    finally:
+        record['launches'] = dict(hk.LAUNCHES)
+        record['peak'] = torch.cuda.max_memory_allocated()
+        with open(record_path, 'w') as f:
+            json.dump(record, f)
+
+
+class Child:
+    """``python chip_smoke.py --train-cli-child`` as a process whose log
+    lines are kept (and written to ``<name>.log``) as they come."""
+
+    def __init__(self, name, out_base):
+        self.name = name
+        self.record_path = os.path.join(CLI_OUT, name + '.json')
+        self.lines = []
+        self.started = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, 'chip_smoke.py'),
+             '--train-cli-child', self.record_path, out_base],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        with open(os.path.join(CLI_OUT, self.name + '.log'), 'w') as f:
+            for line in self.proc.stdout:
+                self.lines.append(line.rstrip())
+                f.write(line)
+
+    def wait_for(self, text, timeout):
+        deadline = time.time() + timeout
+        while time.time() < deadline and self.proc.poll() is None:
+            if any(text in line for line in self.lines):
+                return
+            time.sleep(0.05)
+        raise AssertionError('%s: no log line with %r (exit %s); last lines:'
+                             '\n%s' % (self.name, text, self.proc.poll(),
+                                       '\n'.join(self.lines[-30:])))
+
+    def finish(self, timeout):
+        """Wait for the exit; ``(exit code, seconds, record)``."""
+        try:
+            code = self.proc.wait(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self.reader.join(timeout=30)
+        with open(self.record_path) as f:
+            record = json.load(f)
+        for key in ('losses', 'walls', 'images'):
+            record[key] = {int(k): v for k, v in record[key].items()}
+        return code, time.time() - self.started, record
+
+    def grep(self, text):
+        return [line for line in self.lines if text in line]
+
+
+def cli_launches_wanted():
+    """Kernel launches of one whole CLI run: a training step 3 renders and
+    1 soft-argmax; an image step, an eval batch of live validation or of
+    the final test 2 and 1."""
+    every = [s for s in range(CLI_STEPS) if s % CLI_EVERY == CLI_EVERY - 1]
+    val_batches = -(-VAL_CLIPS // TRAIN_B)
+    evals = len(every) * (1 + val_batches) + val_batches
+    return {'render_heatmaps': 3 * CLI_STEPS + 2 * evals,
+            'soft_argmax': CLI_STEPS + evals}
+
+
+def preempt_and_resume():
+    """(a): an uninterrupted CLI run, and the same run preempted with
+    SIGTERM after step CLI_PREEMPT_AFTER and restarted with the same argv.
+    Returns the uninterrupted run's launches and figures."""
+    shutil.rmtree(CLI_OUT, ignore_errors=True)
+    os.makedirs(CLI_OUT)
+    whole_base = os.path.join(CLI_OUT, 'whole')
+    base = os.path.join(CLI_OUT, 'preempted')
+    code, whole_s, whole = Child('whole', whole_base).finish(600)
+    if code != 0:
+        raise AssertionError('uninterrupted CLI run exited %d' % code)
+    steps = sorted(whole['losses'])
+    if steps != list(range(CLI_STEPS)):
+        raise AssertionError('uninterrupted CLI run took steps %s' % steps)
+    want = cli_launches_wanted()
+    log('train-cli: uninterrupted run of %d steps (B=%d, T=%d, %d clips) '
+        'exited 0 after %.1f s; kernel launches %s (want %s)'
+        % (CLI_STEPS, TRAIN_B, TRAIN_T, CLI_CLIPS, whole_s,
+           whole['launches'], want))
+    if whole['launches'] != want:
+        raise AssertionError('CLI run launched %s, want %s'
+                             % (whole['launches'], want))
+
+    first = Child('preempted', base)
+    first.wait_for('Step %d,' % CLI_PREEMPT_AFTER, 600)
+    sigterm_at = time.time()
+    first.proc.send_signal(signal.SIGTERM)
+    code, _, before = first.finish(CLI_EXIT_TIMEOUT)
+    exit_s = time.time() - sigterm_at
+    saved = first.grep('checkpoint saved at step')
+    if code != 143 or not saved:
+        raise AssertionError('preempted run exited %s, log %s; last lines:\n'
+                             '%s' % (code, saved, '\n'.join(first.lines[-20:])))
+    stop = int(saved[-1].split('checkpoint saved at step ')[1].split(';')[0])
+    (run_dir,) = [os.path.join(base, 'EVE', d)
+                  for d in os.listdir(os.path.join(base, 'EVE'))]
+    ckpt = os.path.join(run_dir, 'checkpoints', '%07d.ckpt' % stop)
+    files = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+    if stop != len(before['losses']) or files != [
+            'eye_net.npz', 'optimizer_torch.npz', 'refine_net.npz']:
+        raise AssertionError('preemption checkpoint %s holds %s after %d '
+                             'steps' % (ckpt, files, len(before['losses'])))
+    log('train-cli: SIGTERM after the log showed step %d: exit 143 %.2f s '
+        'later, checkpoint %s (%s)' % (CLI_PREEMPT_AFTER, exit_s,
+                                       os.path.relpath(ckpt, ROOT), files))
+
+    second = Child('resumed', base)
+    code, resumed_s, after = second.finish(600)
+    continuing = second.grep('auto_resume: continuing')
+    if code != 0 or not continuing or run_dir not in continuing[0]:
+        raise AssertionError('restart exited %s, log %s' % (code, continuing))
+    if sorted(after['losses']) != list(range(stop, CLI_STEPS)) or \
+            not after['final_test']:
+        raise AssertionError('restart took steps %s, final test %s'
+                             % (sorted(after['losses']), after['final_test']))
+    restart_s = after['first_step'] - after['started']
+    log('train-cli: the restart logged "%s", took steps %d-%d, ran the final '
+        'full test and exited 0; %.2f s from its start to its first step'
+        % (continuing[0].split(' INFO ')[-1], stop + 1, CLI_STEPS, restart_s))
+    a = np.array([whole['losses'][k] for k in range(CLI_STEPS)])
+    b = np.array([before['losses'].get(k, after['losses'].get(k))
+                  for k in range(CLI_STEPS)])
+    np.testing.assert_allclose(b, a, **RESUME_LOSS_TOL,
+                               err_msg='preempted+resumed vs uninterrupted')
+    # A resume one batch (and one kappa draw) off would leave the
+    # tolerance: the resumed losses against the uninterrupted run's shifted
+    # by a step.
+    resumed = b[stop:]
+    for shift in (-1, 1):
+        other = a[stop + shift:][:len(resumed)]
+        if np.allclose(resumed[:len(other)], other, **RESUME_LOSS_TOL):
+            raise AssertionError('the resumed losses also match the '
+                                 'uninterrupted run shifted by %d' % shift)
+    log('train-cli: preempted+resumed full_loss vs uninterrupted, max rel '
+        'err %.3g before the SIGTERM (two runs) and %.3g after it (limit '
+        'rtol %g; shifted by a step they differ by up to %.3g): %s vs %s' % (
+            float(np.max(np.abs(b - a)[:stop] / np.abs(a[:stop]))),
+            float(np.max(np.abs(b - a)[stop:] / np.abs(a[stop:]))),
+            RESUME_LOSS_TOL['rtol'],
+            float(np.max(np.abs(resumed[1:] - a[stop:-1]) /
+                         np.abs(a[stop:-1]))),
+            ', '.join('%.6f' % x for x in b),
+            ', '.join('%.6f' % x for x in a)))
+    tags = {'train/screen_plus_initial_history',
+            'train/screen_plus_refined_history', 'train/0_gt_heatmap',
+            'train/1_initial_heatmap', 'train/2_final_heatmap'}
+    image_steps = {s: v for s, v in whole['images'].items() if v}
+    if sorted(image_steps) != [s for s in range(CLI_STEPS)
+                               if s % CLI_EVERY == CLI_EVERY - 1]:
+        raise AssertionError('images at steps %s' % sorted(image_steps))
+    for step, images in image_steps.items():
+        if set(images) != tags or not all(
+                ok and lo >= 0.0 and hi <= 1.0
+                for _, lo, hi, ok in images.values()):
+            raise AssertionError('step %d images %s' % (step, images))
+    log('train-cli: images at steps %s: %s' % (
+        [s + 1 for s in sorted(image_steps)],
+        json.dumps(image_steps[sorted(image_steps)[0]])))
+    full_test = whole['final_test']['synthetic_val']
+    log('train-cli: final full test on %d clips: full_loss %.5f, '
+        'metric_euc_PoG_px_final %.2f px' % (
+            VAL_CLIPS, full_test['full_loss'],
+            full_test['metric_euc_PoG_px_final']))
+    traces = [os.path.join(whole_base, 'profile', f)
+              for f in os.listdir(os.path.join(whole_base, 'profile'))]
+    sizes = [os.path.getsize(t) for t in traces]
+    if not traces or min(sizes) == 0:
+        raise AssertionError('profile traces %s' % traces)
+    log('train-cli: profiler traces %s (%s bytes)' % (
+        [os.path.relpath(t, ROOT) for t in traces], sizes))
+    walls = whole['walls']
+    # A step's wall holds the harness's work after the step before it (a
+    # checkpoint, a validation) and its own images.
+    plain = [s for s in range(2, CLI_STEPS)
+             if s % CLI_EVERY not in (0, CLI_EVERY - 1)]
+    step_ms = 1e3 * float(np.median([walls[s] for s in plain]))
+    log('train-cli: step wall %.1f ms (median of steps %s: no images, no '
+        'checkpoint or validation before them; the loss read each step), '
+        '%.1f training frames/s, peak device memory %.2f GiB (%s); walls ms '
+        '%s' % (step_ms, [s + 1 for s in plain],
+                TRAIN_B * TRAIN_T / (step_ms / 1e3),
+            whole['peak'] / 2 ** 30, card_line(),
+            ', '.join('%.1f' % (1e3 * walls[s]) for s in range(CLI_STEPS))))
+    log('train-cli: SIGTERM to exit %.2f s, exit to the first resumed step '
+        '%.2f s (process start, imports, clips, model and checkpoint load)'
+        % (exit_s, after['first_step'] - sigterm_at - exit_s))
+    return {'launches': whole['launches'], 'step_ms': step_ms,
+            'exit_s': exit_s, 'restart_s': restart_s}
+
+
+class CountingLoader:
+    """A training loader that counts the batches it yields."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.batch_size = inner.batch_size
+        self.count = 0
+
+    def __len__(self):
+        return len(self.inner)
+
+    def fast_forward(self, num_batches):
+        self.inner.fast_forward(num_batches)
+
+    def __iter__(self):
+        for batch in self.inner:
+            self.count += 1
+            yield batch
+
+
+def echo_multi_source(hk, card):
+    """(b): two training sources with train_batch_echoing 2 for
+    ECHO_STEPS steps in process."""
+    from eve_tpu_torch.train import harness
+    config = train_config(train_batch_echoing=ECHO, num_epochs=1.0,
+                          checkpoints_save_every_n_steps=1000,
+                          test_every_n_steps=1000,
+                          tensorboard_images_every_n_steps=1000)
+    sources = [spec('src_a', 21, 2 * TRAIN_B), spec('src_b', 22, TRAIN_B)]
+    train_data, test_data = harness.init_datasets(
+        config, sources, [spec('synthetic_val', 12, VAL_CLIPS)])
+    for data in train_data.values():
+        data['dataloader'] = CountingLoader(data['dataloader'])
+    exp = harness.Experiment(config, os.path.join(TRAIN_OUT, 'multi'),
+                             device=card)
+
+    def loop():
+        return [(step, {k: float(v) for k, v in metrics.items()})
+                for step, metrics, _ in harness.main_loop_iterator(
+                    exp, train_data, test_data)]
+
+    try:
+        steps, launches = counted(hk, loop)
+    finally:
+        exp.close()
+    loads = {tag: d['dataloader'].count for tag, d in train_data.items()}
+    want = {'render_heatmaps': 6 * len(steps), 'soft_argmax': 2 * len(steps)}
+    log('train-cli: echo %d, two sources: %d steps, batches loaded %s, '
+        'kernel launches %s (want %s: twice one source\'s 3 and 1 a step)'
+        % (ECHO, len(steps), loads, launches, want))
+    keys = steps[-1][1]
+    if len(steps) != ECHO_STEPS or any(n * ECHO != len(steps)
+                                       for n in loads.values()) or \
+            launches != want:
+        raise AssertionError('echo and two sources: %d steps, loads %s, '
+                             'launches %s' % (len(steps), loads, launches))
+    total = keys['src_a/full_loss'] + keys['src_b/full_loss']
+    if not np.isclose(keys['full_loss'], total, rtol=1e-6) or \
+            not all(np.isfinite(v) for _, m in steps for v in m.values()):
+        raise AssertionError('two-source metrics %s' % keys)
+    log('train-cli: last step full_loss %.5f = src_a %.5f + src_b %.5f'
+        % (keys['full_loss'], keys['src_a/full_loss'],
+           keys['src_b/full_loss']))
+    return {k: v // len(steps) for k, v in launches.items()}
+
+
+def eye_net_card_vs_cpu(spec_, card):
+    """One B=EYE_CMP_B, T=EYE_CMP_T step of the trainable EyeNet, card vs
+    CPU, from the same seeded weights, batch and kappas: full_loss, and
+    every EyeNet gradient against the limits of EYE_GRAD_LIMITS. Also
+    prints the CPU's own spread under a weight perturbation."""
+    from eve_tpu_torch.models import eve as eve_lib
+    from eve_tpu_torch.train import harness
+    from eve_tpu_torch.train import step as step_lib
+    with torch.device('meta'):  # names and shapes only
+        skeleton = eve_lib.EVE(spec_)
+    state_dict = random_state_dict(skeleton, seed=6)
+    noise = torch.Generator().manual_seed(1)
+    perturbed = {k: v * (1 + CMP_PERTURB * torch.randn(v.shape,
+                                                       generator=noise))
+                 for k, v in state_dict.items()}
+    clips = synthetic_clips(8, EYE_CMP_B, EYE_CMP_T)
+    batch = {k: np.stack([c[k] for c in clips]) for k in clips[0]}
+    runs = {'CPU': ('cpu', state_dict, True),
+            'card': (card, state_dict, True),
+            'card without cuDNN': (card, state_dict, False),
+            'CPU under a %g weight perturbation' % CMP_PERTURB:
+            ('cpu', perturbed, True)}
+    loss, grads = {}, {}
+    for what, (device, weights, cudnn) in runs.items():
+        model = eve_lib.build_model(spec_, weights, device)
+        with torch.backends.cudnn.flags(enabled=cudnn, deterministic=False,
+                                        benchmark=False, allow_tf32=False):
+            out = step_lib.accumulate_gradients(
+                model, eve_lib.batch_to_tensors(batch, device),
+                harness.kappa_generator(0, 1000))
+        loss[what] = out['full_loss'].item()
+        grads[what] = {n: p.grad.cpu() for n, p in model.named_parameters()
+                       if p.grad is not None}
+    cpu = grads['CPU']
+    if not cpu or any(not n.startswith('eye_net.') for n in cpu):
+        raise AssertionError('EyeNet gradients: %s' % sorted(cpu)[:5])
+    top = max(float(g.abs().max()) for g in cpu.values())
+    worst = {}
+    for what, got in grads.items():
+        elem = l2 = (0.0, '')
+        for name, want in cpu.items():
+            d = got[name] - want
+            scale = float(want.abs().max()) + EYE_GRAD_TOP * top
+            elem = max(elem, (float(d.abs().max()) / scale, name))
+            l2 = max(l2, (float(d.norm()) / (float(want.norm()) + EYE_GRAD_TOP
+                                             * top * want.numel() ** 0.5),
+                          name))
+        worst[what] = (elem, l2)
+        if what != 'CPU':
+            log('eye-net: %s vs CPU, B=%d T=%d: full_loss %.7f vs %.7f; '
+                'worst element error %.3g of its tensor\'s largest element '
+                '(%s), worst L2 error %.3g of its norm (%s)' % (
+                    what, EYE_CMP_B, EYE_CMP_T, loss[what], loss['CPU'],
+                    elem[0], elem[1], l2[0], l2[1]))
+    for what, (elem_limit, l2_limit) in EYE_GRAD_LIMITS.items():
+        np.testing.assert_allclose(loss[what], loss['CPU'], **CMP_LOSS_TOL,
+                                   err_msg='EyeNet %s vs CPU full_loss' % what)
+        elem, l2 = worst[what]
+        if elem[0] > elem_limit or l2[0] > l2_limit:
+            raise AssertionError('EyeNet %s vs CPU gradients beyond %g '
+                                 '(element) and %g (L2): %s %s' % (
+                                     what, elem_limit, l2_limit, elem, l2))
+    log('eye-net: card vs CPU: %d EyeNet gradients within %s' % (
+        len(cpu), ', '.join('%g (element) and %g (L2) %s' % (e, l, w)
+                            for w, (e, l) in EYE_GRAD_LIMITS.items())))
+
+
+def eye_net_phase(hk, card):
+    """(c): configs/eye_net.json at its own width, EyeNet trainable."""
+    from eve_tpu_torch.config import Config
+    from eve_tpu_torch.data.loader import to_device
+    from eve_tpu_torch.train import harness
+    config = Config()
+    config.import_json(os.path.join(ROOT, 'configs', 'eye_net.json'))
+    config.import_dict({'num_epochs': 1.0, 'fully_reproducible': True,
+                        'checkpoints_save_every_n_steps': 1000,
+                        'test_every_n_steps': 1000,
+                        'train_data_workers': 4})
+    if (config.batch_size, config.max_sequence_len, config.eyes_size,
+            config.refine_net_enabled, config.eye_net_frozen) != (
+            EYE_B, TRAIN_T, [128, 128], False, False):
+        raise AssertionError('configs/eye_net.json changed')
+    train_data, test_data = harness.init_datasets(
+        config, [spec('synthetic', 31, EYE_B * EYE_STEPS)],
+        [spec('synthetic_val', 12, VAL_CLIPS)])
+    exp = harness.Experiment(config, os.path.join(TRAIN_OUT, 'eye_net'),
+                             device=card)
+    losses, walls = {}, []
+
+    def loop():
+        t0 = time.perf_counter()
+        for step, metrics, _ in harness.main_loop_iterator(
+                exp, train_data, test_data):
+            losses[step] = float(metrics['full_loss'])  # syncs
+            walls.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+
+    torch.cuda.reset_peak_memory_stats(card)
+    try:
+        _, launches = counted(hk, loop)
+    finally:
+        exp.close()
+    peak = torch.cuda.max_memory_allocated(card)
+    step_s = float(np.median(walls[2:]))
+    log('eye-net: configs/eye_net.json, B=%d T=%d, %d steps: full_loss %s; '
+        'kernel launches %s (want none: no RefineNet)' % (
+            EYE_B, TRAIN_T, len(losses),
+            ', '.join('%.4f' % losses[k] for k in sorted(losses)), launches))
+    if len(losses) != EYE_STEPS or any(launches.values()) or \
+            not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError('eye_net run: %d steps, launches %s'
+                             % (len(losses), launches))
+    log('eye-net: step wall %.1f ms (median of steps 3-%d, data wait and a '
+        'loss read included), %.1f training frames/s, peak device memory '
+        '%.2f GiB (%s); walls ms %s' % (
+            1e3 * step_s, EYE_STEPS, EYE_B * TRAIN_T / step_s,
+            peak / 2 ** 30, card_line(),
+            ', '.join('%.1f' % (1e3 * w) for w in walls)))
+    batch, _ = to_device(next(iter(train_data['synthetic']['dataloader'])),
+                         card)
+    profile_train_step(exp.state, batch, card, what='eye-net profile')
+    eye_net_card_vs_cpu(exp.spec, card)
+    return {'step_ms': 1e3 * step_s, 'peak': peak, 'launches': launches}
+
+
+def train_cli_phase(hk, card):
+    cli = preempt_and_resume()
+    cli['per_step_two_sources'] = echo_multi_source(hk, card)
+    cli['eye_net'] = eye_net_phase(hk, card)
+    return cli
 
 
 # ---------------------------------------------------------------------------
@@ -1270,6 +1808,9 @@ def main():
         log('chip_smoke: no CUDA card visible (torch.cuda.is_available() '
             'is False)')
         return 2
+    # The harness keeps an application's own SIGTERM handler: this one ends
+    # the script, and the phases' finally blocks stop its child processes.
+    signal.signal(signal.SIGTERM, lambda signum, frame: sys.exit(128 + signum))
     # cuDNN runs float32 convolutions in TF32 by default (about three
     # decimal digits); the port is held to float32 results, so TF32 is off.
     torch.backends.cudnn.allow_tf32 = False
@@ -1295,6 +1836,7 @@ def main():
     timings_eval = kernel_timings(hk, CODALAB_N)
     launches = serve_phase(hk)
     train = training_phase(hk, torch.device('cuda', 0))
+    cli = train_cli_phase(hk, torch.device('cuda', 0))
     evals = eval_phase(hk, torch.device('cuda', 0))
 
     source = 'eve_tpu_torch/csrc/heatmap_kernels.cu'
@@ -1306,6 +1848,10 @@ def main():
                      'train_launches': train['launches'][name],
                      'launches_per_train_step': train['per_step'][name],
                      'launches_per_eval_batch': train['per_eval_batch'][name],
+                     'train_cli_launches': cli['launches'][name],
+                     'launches_per_two_source_step':
+                         cli['per_step_two_sources'][name],
+                     'eye_net_train_launches': cli['eye_net']['launches'][name],
                      'eval_launches': evals['launches'][name],
                      'launches_per_streamed_chunk': evals['per_chunk'][name],
                      'launches_per_codalab_batch': evals['per_batch'][name],
@@ -1324,4 +1870,7 @@ def main():
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    if sys.argv[1:2] == ['--train-cli-child']:
+        train_cli_child(sys.argv[2:])
+    else:
+        sys.exit(main())

@@ -18,18 +18,24 @@ groups (see ROADMAP.md):
   here for good: the port's dataset reader always emits uint8 frames, which
   the model normalises on the device, so there is no host-side float
   packing to switch;
-- ``UNIMPLEMENTED_KEYS`` (options of later slices): they raise
-  ``NotImplementedError`` when set to anything but their default, so a run
-  never silently differs from the one its config describes.
+- ``UNIMPLEMENTED_KEYS`` (remat, the sequence and model meshes,
+  multi-host): they raise ``NotImplementedError`` when set to anything but
+  their default, so a run never silently differs from the one its config
+  describes.
 
 A key in no set raises, so a typo still fails loudly. Unlike ``eve_tpu``'s
 singleton, every ``Config()`` is a fresh object that the caller creates and
-passes.
+passes. ``write_file_contents`` records a run's provenance as eve_tpu's
+does: ``configs/combined.json``, every imported JSON file under its own
+name, and ``src.zip`` of the package's sources.
 """
 
+import glob
 import json
 import logging
 import os
+import sys
+import zipfile
 
 logger = logging.getLogger(__name__)
 
@@ -38,10 +44,8 @@ logger = logging.getLogger(__name__)
 # here for good: the port always launches its kernels on a CUDA tensor.
 DEFERRED_KEYS = frozenset((
     'tpu_native_refine_head', 'tpu_native_stem', 'export_batch_size',
-    'export_path', 'export_streaming', 'frame_cache_gb',
-    'full_test_batch_size', 'full_test_data_workers', 'note',
-    'prefetch_buffer_size', 'tpu_compile_cache_dir',
-    'tpu_coordinator_address', 'tpu_num_processes',
+    'export_path', 'export_streaming', 'note', 'prefetch_buffer_size',
+    'tpu_compile_cache_dir', 'tpu_coordinator_address', 'tpu_num_processes',
     'tpu_on_device_preprocess', 'tpu_process_id', 'tpu_use_pallas',
     'use_native_framepack',
 ))
@@ -49,18 +53,10 @@ DEFERRED_KEYS = frozenset((
 # Options of later slices, with eve_tpu's defaults: any other value raises
 # (NotImplementedError) instead of being ignored.
 UNIMPLEMENTED_KEYS = {
-    'train_batch_echoing': 1,
     'tpu_remat': 'none',
     'tpu_sequence_shards': 1,
     'tpu_model_parallelism': 1,
     'tpu_multihost': False,
-    'profile_dir': '',
-    'gsheet_secrets_json_file': '',
-    'gsheet_workbook_key': '',
-    'skip_training': False,
-    'auto_resume': False,
-    # The decode-once disk frame cache (eve_tpu/data/framecache.py).
-    'frame_cache_dir': '',
 }
 
 
@@ -117,8 +113,16 @@ class Config:
     # Run directory to load weights from, or to resume training
     resume_from = ''
 
+    # Decode-once disk cache of the training windows' frames
+    # (data/framecache.py), shared with eve_tpu; '' disables. Least-recently
+    # written entries are evicted beyond frame_cache_gb GiB.
+    frame_cache_dir = ''
+    frame_cache_gb = 20.0
+
     # Training
     identifier_suffix = ''
+    # Evaluate only: build the model (and resume), skip the training loop.
+    skip_training = False
     fully_reproducible = False
     batch_size = 16
     weight_decay = 0.001
@@ -129,6 +133,11 @@ class Config:
     tensorboard_images_every_n_steps = 10
     tensorboard_learning_rate_every_n_steps = 100
     base_learning_rate = 0.0005
+    # Data echoing: each loaded batch is trained on this many times (each
+    # time with fresh kappa draws).
+    train_batch_echoing = 1
+    # torch.profiler trace of loop steps +5..+10 into this directory ('' off).
+    profile_dir = ''
 
     @property
     def learning_rate(self):
@@ -161,12 +170,24 @@ class Config:
     test_batch_size = 128
     test_data_workers = 0
     test_every_n_steps = 500
+    # The final full test (harness.do_final_full_test)
+    full_test_batch_size = 128
+    full_test_data_workers = 4
 
     # Checkpoints: a periodic save every N steps, the newest N kept; the
     # periodic saves write on a background thread after a host snapshot.
     checkpoints_save_every_n_steps = 100
     checkpoints_keep_n = 3
     tpu_async_checkpoint = True
+    # Continue the newest run directory of the same config hash that holds
+    # a checkpoint (a restart after a preemption exit 143 with the same
+    # argv), instead of starting a fresh one.
+    auto_resume = False
+
+    # Google Sheets experiment registry (train/gsheet.py); inert unless
+    # both are set and gspread is installed.
+    gsheet_secrets_json_file = ''
+    gsheet_workbook_key = ''
 
     # Eye gaze network
     eye_net_load_pretrained = False
@@ -241,12 +262,52 @@ class Config:
         return {k: getattr(self, k) for k in self.keys()}
 
     def import_json(self, json_path):
-        """Import a JSON config file, overriding existing entries."""
+        """Import a JSON config file, overriding existing entries; its text
+        is kept for ``write_file_contents``."""
         if not os.path.isfile(json_path):
             raise FileNotFoundError(json_path)
         logger.info('Loading %s', json_path)
         with open(json_path, 'r') as f:
-            self.import_dict(json.load(f))
+            text = f.read()
+        self.import_dict(json.loads(text))
+        # Two imported files may share a basename: number the later one.
+        contents = self.__dict__.setdefault('_file_contents', {})
+        name = os.path.basename(json_path)
+        if contents.get(name, text) != text:
+            stem, ext = os.path.splitext(name)
+            i = 2
+            while '%s.%d%s' % (stem, i, ext) in contents:
+                i += 1
+            name = '%s.%d%s' % (stem, i, ext)
+        contents[name] = text
+
+    def write_file_contents(self, target_base_dir):
+        """Write the run's provenance into ``target_base_dir``:
+        ``configs/combined.json`` (every key's value), ``configs/config.py``
+        and each imported JSON file, and ``src.zip`` holding the package's
+        ``.py``, ``.json``, ``.cu`` and ``.cuh`` files and the main script."""
+        target_dir = os.path.join(target_base_dir, 'configs')
+        os.makedirs(target_dir, exist_ok=True)
+        with open(os.path.abspath(__file__)) as f:
+            outputs = {'combined.json': json.dumps(
+                self.get_all_key_values(), indent=4, sort_keys=True),
+                       os.path.basename(__file__): f.read()}
+        outputs.update(self.__dict__.get('_file_contents', {}))
+        for name, content in outputs.items():
+            with open(os.path.join(target_dir, name), 'w') as f:
+                f.write(content)
+        package = os.path.dirname(os.path.abspath(__file__))
+        zip_path = os.path.join(target_base_dir, 'src.zip')
+        with zipfile.ZipFile(zip_path, 'w', zipfile.ZIP_DEFLATED) as zf:
+            for ext in ('py', 'json', 'cu', 'cuh'):
+                for path in sorted(glob.glob(os.path.join(
+                        package, '**', '*.' + ext), recursive=True)):
+                    zf.write(path, os.path.relpath(path,
+                                                   os.path.dirname(package)))
+            main_script = os.path.abspath(sys.argv[0]) if sys.argv else ''
+            if main_script.endswith('.py') and os.path.isfile(main_script):
+                zf.write(main_script, os.path.basename(main_script))
+        logger.info('Written the config and sources to %s', target_base_dir)
 
     def import_dict(self, dictionary):
         """Import key/value pairs, with strict type agreement checks."""

@@ -15,8 +15,10 @@ Frames stay uint8 NHWC, the layout of eve_tpu's
 (``models.eve._to_compute`` and ``_screen_to_float``), so the host ships a
 quarter of the bytes and eve_tpu's host-side float packing (``framepack``)
 has no counterpart. ``h5py`` is imported where labels are read, so the
-package imports on a machine without it. eve_tpu's disk frame cache
-(``frame_cache_dir``) is not ported yet; the config key raises.
+package imports on a machine without it. With ``frame_cache_dir`` set,
+the windowed (training and live-validation) reads go through the
+decode-once disk cache of ``data.framecache``, which eve_tpu's reader
+shares.
 """
 
 import collections
@@ -26,6 +28,7 @@ import threading
 
 import numpy as np
 
+from eve_tpu_torch.data.framecache import FrameDiskCache
 from eve_tpu_torch.data.segmentation import (
     load_or_build_cache, select_sequences)
 from eve_tpu_torch.data.specs import predefined_splits
@@ -107,6 +110,9 @@ class EVESequencesBase:
         self._full_video_cache_lock = threading.Lock()
         self._label_cache = collections.OrderedDict()
         self._label_cache_lock = threading.Lock()
+        self._frame_cache = (FrameDiskCache(config.frame_cache_dir,
+                                            config.frame_cache_gb)
+                             if config.frame_cache_dir else None)
 
         segmentations = load_or_build_cache(
             dataset_path, config.assumed_frame_rate, config.max_sequence_len,
@@ -209,9 +215,19 @@ class EVESequencesBase:
             timestamps = timestamps[in_range]
             frames = frames[in_range]
         else:
-            timestamps, frames = VideoReader(
-                video_path, frame_indices=selected_indices,
-                output_size=output_size).get_frames()
+            key = cached = None
+            if self._frame_cache is not None:
+                key = self._frame_cache.key(video_path, selected_indices,
+                                            output_size)
+                cached = self._frame_cache.get(key)
+            if cached is not None:
+                timestamps, frames = cached
+            else:
+                timestamps, frames = VideoReader(
+                    video_path, frame_indices=selected_indices,
+                    output_size=output_size).get_frames()
+                if self._frame_cache is not None:
+                    self._frame_cache.put(key, timestamps, frames)
 
         subentry['timestamps'] = np.asarray(timestamps, np.int64)
         if source != 'screen' and cfg.camera_frame_type == 'eyes':

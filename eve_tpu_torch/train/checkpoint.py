@@ -12,8 +12,16 @@ The optimizer state goes to a file of the port's own,
 ``optimizer_torch.npz``: Adam's moments and step count per parameter name,
 and, mid-way through a gradient accumulation, the gradients summed so far.
 eve_tpu skips ``optimizer_*`` files when it reads parameters. A run of the
-port resumes exactly; a run of eve_tpu resumes with a fresh optimizer, and
-the log says so (its optax moments are not carried over).
+port resumes exactly. A run of eve_tpu resumes with its optax state from
+``optimizer_0.npz`` (``optax_optimizer_tree``): every ``scale_by_adam``
+node's ``mu``, ``nu`` and ``count`` become torch Adam's ``exp_avg``,
+``exp_avg_sq`` and ``step``, through the transposes ``utils.convert``
+applies to the parameters, in each chain layout eve_tpu builds (the flat
+chain, ``multi_transform`` with a frozen EyeNet or per-submodule LR
+multipliers, ``MultiSteps``, whose running mean of the accumulated
+gradients becomes the port's sum). An ``optimizer_0.msgpack`` (older
+eve_tpu runs) is not read: the run resumes with a fresh optimizer, and the
+log says so.
 
 Writes are atomic (a ``.tmp`` directory, then a rename), the newest
 ``keep_n`` are kept, and ``save_at_step(wait=False)`` hands the file write
@@ -37,8 +45,11 @@ logger = logging.getLogger(__name__)
 
 _SUFFIX = '.ckpt'
 OPTIMIZER_FILE = 'optimizer_torch.npz'
-# eve_tpu's optimizer files (optax state), not read by the port.
-FOREIGN_OPTIMIZER_FILES = ('optimizer_0.npz', 'optimizer_0.msgpack')
+# eve_tpu's optimizer state: the '/'-flattened optax state tree, and the
+# older msgpack form, which the port does not read.
+OPTAX_OPTIMIZER_FILE = 'optimizer_0.npz'
+OPTAX_MSGPACK_FILE = 'optimizer_0.msgpack'
+_EMPTY = '__empty__'  # eve_tpu's marker of an empty optax node
 
 
 def flatten_tree(tree, prefix=()):
@@ -165,17 +176,23 @@ class CheckpointManager:
         step = int(os.path.basename(path)[:-len(_SUFFIX)])
         state.step = step
         opt_path = os.path.join(path, OPTIMIZER_FILE)
+        optax_path = os.path.join(path, OPTAX_OPTIMIZER_FILE)
         if load_optimizer and os.path.isfile(opt_path):
             with np.load(opt_path) as data:
                 _load_optimizer(state, unflatten_tree(
                     {k: data[k] for k in data.files}))
             logger.info('> Loaded optimizer state from: %s', opt_path)
-        elif load_optimizer and any(
-                os.path.isfile(os.path.join(path, f))
-                for f in FOREIGN_OPTIMIZER_FILES):
+        elif load_optimizer and os.path.isfile(optax_path):
+            with np.load(optax_path) as data:
+                _load_optimizer(state, optax_optimizer_tree(
+                    state, {k: data[k] for k in data.files}))
+            logger.info('> Loaded eve_tpu optimizer state (optax) from: %s',
+                        optax_path)
+        elif load_optimizer and os.path.isfile(
+                os.path.join(path, OPTAX_MSGPACK_FILE)):
             logger.warning(
-                '> %s holds eve_tpu optimizer state (optax), which the port '
-                'does not read: resuming with a fresh optimizer', path)
+                '> %s holds eve_tpu optimizer state as msgpack, which the '
+                'port does not read: resuming with a fresh optimizer', path)
         return step
 
     def load_last_checkpoint(self, state, load_optimizer=True):
@@ -204,3 +221,93 @@ def _load_optimizer(state, tree):
     for name, g in tree.get('grad', {}).items():
         p = params[name]
         p.grad = torch.from_numpy(np.asarray(g)).to(p.device)
+
+
+def _adam_nodes(flat):
+    """``{node path: [keys of its mu and nu leaves]}`` of every
+    ``scale_by_adam`` state in a flattened optax tree: the first ``mu`` or
+    ``nu`` component of a key whose node has a ``count`` beside it."""
+    nodes = {}
+    for key in flat:
+        parts = key.split('/')
+        for i, part in enumerate(parts[:-1]):
+            if part in ('mu', 'nu'):
+                node = '/'.join(parts[:i])
+                if (node + '/count' if node else 'count') in flat:
+                    nodes.setdefault(node, []).append(key)
+                break
+    return nodes
+
+
+def _port_leaves(flat, prefix, what):
+    """The leaves under ``prefix`` of a flattened eve_tpu tree, by the
+    port's parameter names (``utils.convert``'s transposes)."""
+    tree = unflatten_tree({k[len(prefix):]: v for k, v in flat.items()
+                           if k.startswith(prefix) and
+                           not k.endswith(_EMPTY)})
+    unknown = sorted(set(tree) - {'eye_net', 'refine_net'})
+    if unknown:
+        raise KeyError('%s: optax leaves under %s%s have no counterpart in '
+                       'the port' % (what, prefix, unknown[0]))
+    try:
+        return {k: v.numpy() for k, v in convert.eve_state_dict(tree).items()}
+    except KeyError as exc:
+        raise KeyError('%s: optax leaf %s has no counterpart in the port'
+                       % (what, exc)) from None
+
+
+def optax_optimizer_tree(state, flat):
+    """eve_tpu's flattened optax state -> the tree ``_load_optimizer``
+    takes: ``{'state': {name: {'step', 'exp_avg', 'exp_avg_sq'}},
+    'grad': {name: summed gradient}}``.
+
+    Every parameter the port's optimizer trains must get its moments from
+    exactly one Adam node, and every moment must land on such a parameter;
+    anything else raises, naming the leaf.
+    """
+    named = dict(state.model.named_parameters())
+    held = {id(p) for g in state.optimizer.param_groups for p in g['params']}
+    trainable = {n for n, p in named.items() if id(p) in held}
+    moments = {}
+    for node in sorted(_adam_nodes(flat)):
+        base = node + '/' if node else ''
+        count = np.float32(flat[base + 'count'])
+        mu = _port_leaves(flat, base + 'mu/', 'optimizer_0.npz')
+        nu = _port_leaves(flat, base + 'nu/', 'optimizer_0.npz')
+        if set(mu) != set(nu):
+            raise KeyError('optax node %s: mu and nu hold other leaves: %s'
+                           % (node, sorted(set(mu) ^ set(nu))[:5]))
+        for name in mu:
+            if name not in named:
+                raise KeyError('optax node %s holds Adam moments of %s, '
+                               'which the port does not have' % (node, name))
+            if name not in trainable:
+                raise KeyError('optax node %s holds Adam moments of %s, '
+                               'which the port does not train' % (node, name))
+            if name in moments:
+                raise KeyError('two optax Adam nodes hold moments of %s'
+                               % name)
+            moments[name] = {'step': count, 'exp_avg': mu[name],
+                             'exp_avg_sq': nu[name]}
+    missing = sorted(trainable - set(moments))
+    if missing:
+        raise KeyError('optimizer_0.npz holds no Adam moments of %d trained '
+                       'parameters: %s' % (len(missing), missing[:5]))
+    # optax's MultiSteps keeps the running mean of the micro-steps'
+    # gradients; the port keeps their sum.
+    mini_step = int(flat.get('mini_step', 0))
+    if state.step % state.accumulation_steps != mini_step:
+        raise ValueError(
+            'checkpoint at micro-step %d under gradient_accumulation_steps '
+            '%d, but its optax state is %d micro-steps into an update'
+            % (state.step, state.accumulation_steps, mini_step))
+    grads = {}
+    if mini_step:
+        acc = _port_leaves(flat, 'acc_grads/', 'optimizer_0.npz')
+        unknown = sorted(set(acc) - set(named))
+        if unknown:
+            raise KeyError('optax acc_grads of %s, which the port does not '
+                           'have' % unknown[:5])
+        grads = {n: (v * np.float32(mini_step)).astype(np.float32)
+                 for n, v in acc.items() if n in trainable}
+    return {'state': moments, 'grad': grads}

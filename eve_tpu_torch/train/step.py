@@ -11,6 +11,10 @@ of k micro-batches are summed, then averaged, clipped and applied in one
 update. ``TrainState.step`` counts micro-steps; the LR schedule's domain is
 optimizer updates, ``step // k``.
 
+``multi_source_train_step`` is eve_tpu's ``make_multi_source_train_step``:
+one backward of the sum of each source's ``full_loss``, each source's
+scalars prefixed ``<tag>/``.
+
 Every 0-dim output comes back as a device tensor, with a ``nan_flag``;
 nothing here waits for the card, so the host syncs only where the caller
 reads a value (the harness: at log, checkpoint and test intervals).
@@ -86,6 +90,41 @@ def train_step(state, batch, generator=None):
     return scalar_outputs(out)
 
 
+def accumulate_multi_source_gradients(model, batches, generators=None):
+    """One backward of the sum of every source's ``full_loss``.
+
+    ``batches`` is ``{tag: batch}`` and ``generators`` ``{tag: CPU
+    torch.Generator}`` (the kappa draws of each source's forward). Returns
+    the 0-dim outputs, each source's prefixed ``<tag>/``, and the summed
+    ``full_loss``.
+    """
+    total = 0.0
+    scalars = {}
+    for tag in sorted(batches):
+        out = model(batches[tag], training=True,
+                    generator=(generators or {}).get(tag))
+        for k, v in out.items():
+            if isinstance(v, torch.Tensor) and v.ndim == 0:
+                scalars['%s/%s' % (tag, k)] = v
+        total = total + out['full_loss']
+    total.backward()
+    scalars['full_loss'] = total
+    return scalars
+
+
+def multi_source_train_step(state, batches, generators=None):
+    """``train_step`` over several sources: ``batches`` is ``{tag: batch}``
+    and ``generators`` ``{tag: generator}``. Returns every source's 0-dim
+    outputs prefixed ``<tag>/``, the summed ``full_loss`` and a
+    ``nan_flag`` over them all."""
+    state.model.train()
+    out = accumulate_multi_source_gradients(state.model, batches, generators)
+    state.step += 1
+    if state.step % state.accumulation_steps == 0:
+        apply_update(state)
+    return scalar_outputs(out)
+
+
 def apply_update(state):
     """One optimizer update from the summed gradients: average them over
     the micro-steps, clip, set the LR of update ``state.updates - 1``,
@@ -101,8 +140,9 @@ def apply_update(state):
     optimizer.zero_grad(set_to_none=True)
 
 
-def eval_step(model, batch):
-    """``forward(training=False)`` without a graph: the output dict."""
+def eval_step(model, batch, create_images=False):
+    """``forward(training=False)`` without a graph: the output dict (with
+    the image outputs under ``create_images``)."""
     model.eval()
     with torch.inference_mode():
-        return model(batch, training=False)
+        return model(batch, training=False, create_images=create_images)

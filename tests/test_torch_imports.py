@@ -4,8 +4,9 @@ A subprocess imports every module of ``eve_tpu_torch`` and then checks
 ``sys.modules``; an AST walk checks that no file of the package, and not
 ``chip_smoke.py``, names ``jax``, ``flax``, ``optax`` or ``eve_tpu`` in an
 import. The same subprocess checks that importing the package pulls in
-neither ``h5py`` nor ``cv2``, which the card's machine does not have: the
-dataset reader and the overlay import them where they read or draw.
+neither ``h5py``, ``cv2`` nor ``gspread``, which the card's machine does
+not have: the dataset reader, the overlay and the Google Sheets logger
+import them where they read, draw or log.
 """
 
 import ast
@@ -18,8 +19,9 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, 'eve_tpu_torch')
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'eve_tpu')
-# Host libraries of the reader and the overlay, imported on first use.
-LAZY = ('h5py', 'cv2')
+# Host libraries of the reader, the overlay and the Google Sheets logger,
+# imported on first use.
+LAZY = ('h5py', 'cv2', 'gspread', 'oauth2client')
 
 
 def _package_files():
@@ -40,7 +42,9 @@ def _module_names():
 def test_importing_every_module_pulls_in_no_jax():
     modules = sorted(_module_names())
     assert {'eve_tpu_torch.serve', 'eve_tpu_torch.data.dataset',
-            'eve_tpu_torch.cli.inference'} <= set(modules)
+            'eve_tpu_torch.cli.inference', 'eve_tpu_torch.cli.train',
+            'eve_tpu_torch.train.gsheet',
+            'eve_tpu_torch.data.framecache'} <= set(modules)
     code = (
         'import importlib, json, sys\n'
         'for m in %r:\n'

@@ -3,8 +3,10 @@
 Parameters cross in both directions bitwise: the port writes and eve_tpu's
 ``CheckpointManager.load`` reads, and the reverse (both store eve_tpu's
 flattened float32 tree; the layout conversion only transposes). The port's
-own optimizer state resumes exactly; an eve_tpu run resumes with a fresh
-optimizer and a log line. Pruning keeps the newest ``keep_n``, and an
+own optimizer state resumes exactly; an eve_tpu run resumes with its optax
+state from ``optimizer_0.npz`` (``tests/test_torch_train_moments.py``
+holds the continuation against eve_tpu's in every chain layout), and from
+the older ``optimizer_0.msgpack`` with a fresh optimizer and a log line. Pruning keeps the newest ``keep_n``, and an
 interrupted write (a left-over ``.tmp`` directory) is never read.
 """
 
@@ -99,23 +101,58 @@ def test_port_checkpoint_loads_in_eve_tpu_bitwise(tmp_path, tconf, jspec):
 
 def test_eve_tpu_checkpoint_loads_in_port_bitwise(tmp_path, tconf, jspec,
                                                   caplog):
+    from eve_tpu.config import DefaultConfig
+    from eve_tpu.train import optim as joptim
     template = _jax_template(jspec)
     rng = np.random.RandomState(0)
     params = jax.tree_util.tree_map(
         lambda v: np.asarray(v) + rng.normal(0, 0.1, v.shape).astype(
             np.float32), template.params)
+    DefaultConfig._reset_instance_for_testing()
+    try:
+        jc = DefaultConfig()
+        jc.import_json(CONFIG)
+        jc.import_dict({'batch_size': 2, 'gradient_accumulation_steps': 2})
+        tx, _ = joptim.build_optimizer(jc, 4)
+    finally:
+        DefaultConfig._reset_instance_for_testing()
+    # Step 5 under accumulation 2: one micro-step into an update.
+    grads = jax.tree_util.tree_map(
+        lambda v: rng.normal(0, 1, v.shape).astype(np.float32), params)
+    opt_state = tx.init(params)._replace(mini_step=jnp.int32(1),
+                                         acc_grads=grads)
     jckpt.CheckpointManager(str(tmp_path)).save_at_step(
-        5, template.replace(params=params, opt_state={'mu': params}))
+        5, template.replace(params=params, opt_state=opt_state))
     state = _state(tconf)
-    with caplog.at_level(logging.WARNING):
+    with caplog.at_level(logging.INFO):
         step = tckpt.CheckpointManager(str(tmp_path)).load_last_checkpoint(
             state)
     assert step == state.step == 5
-    assert 'fresh optimizer' in caplog.text
-    assert not state.optimizer.state
+    assert 'optimizer_0.npz' in caplog.text
+    assert 'fresh optimizer' not in caplog.text
     want = convert.eve_state_dict(params)
     for k, v in state.model.state_dict().items():
         assert torch.equal(v, want[k]), k
+    want_grads = convert.eve_state_dict(grads)
+    trained = [(n, p) for n, p in state.model.named_parameters()
+               if p.requires_grad]
+    assert len(state.optimizer.state) == len(trained)
+    for n, p in trained:
+        assert float(state.optimizer.state[p]['step']) == 0.0
+        assert torch.equal(p.grad, want_grads[n]), n
+
+    # The older msgpack form is not read: a fresh optimizer, and a log line.
+    old = os.path.join(str(tmp_path), 'checkpoints', '0000006.ckpt')
+    os.rename(os.path.join(str(tmp_path), 'checkpoints', '0000005.ckpt'), old)
+    os.rename(os.path.join(old, 'optimizer_0.npz'),
+              os.path.join(old, 'optimizer_0.msgpack'))
+    state = _state(tconf)
+    caplog.clear()
+    with caplog.at_level(logging.WARNING):
+        assert tckpt.CheckpointManager(str(tmp_path)).load_last_checkpoint(
+            state) == 6
+    assert 'fresh optimizer' in caplog.text
+    assert not state.optimizer.state
 
 
 def _batch(seed):

@@ -1,8 +1,9 @@
 """The port's training harness on the CPU.
 
 A run of ``configs/refine_net.json`` (frozen EyeNet, seeded init, 32x32
-eyes, B = 2, T = 3) through ``Experiment``, ``init_datasets`` and
-``main_loop_iterator`` writes its run directory and checkpoints; a fresh
+eyes, B = 2, T = 3) through ``Experiment``, ``init_datasets`` (spec tuples
+of in-memory clips, ``tests/torch_clips.py``) and ``main_loop_iterator``
+writes its run directory and checkpoints; a fresh
 ``Experiment`` resumed from the mid-run checkpoint takes the remaining
 steps bitwise equal to the uninterrupted run under ``fully_reproducible``
 (the same data order, kappas and optimizer state; the CPU's kernels are
@@ -20,12 +21,12 @@ import pytest
 import torch
 
 from eve_tpu_torch import config as tconfig
-from eve_tpu_torch.data.synthetic import make_synthetic_batch
 from eve_tpu_torch.models import eve as teve
 from eve_tpu_torch.train import checkpoint as tckpt
 from eve_tpu_torch.train import harness
 from eve_tpu_torch.train import logging_utils
 from eve_tpu_torch.utils import convert
+from tests.torch_clips import specs
 
 CONFIG = os.path.join(os.path.dirname(__file__), '..', 'configs',
                       'refine_net.json')
@@ -43,27 +44,12 @@ def _few_threads():
 
 
 
-class _Clips:
-    """An in-memory dataset of synthetic clips, one dict each."""
-
-    def __init__(self, seed, n, t=3, eyes=32):
-        batch = make_synthetic_batch(np.random.RandomState(seed),
-                                     batch_size=n, sequence_len=t,
-                                     eyes_size=eyes, frame_dtype=np.uint8)
-        self.clips = [{k: v[i] for k, v in batch.items()} for i in range(n)]
-
-    def __len__(self):
-        return len(self.clips)
-
-    def __getitem__(self, i):
-        return self.clips[i]
-
-
 def _config(**overrides):
     cfg = tconfig.Config()
     cfg.import_json(CONFIG)
     cfg.import_dict(dict({
         'eye_net_load_pretrained': False, 'batch_size': 2, 'num_epochs': 1.0,
+        'max_sequence_len': 3, 'eyes_size': [32, 32],
         'fully_reproducible': True, 'train_data_workers': 2,
         'checkpoints_save_every_n_steps': 2, 'test_every_n_steps': 2,
         'test_num_samples': 3, 'test_batch_size': 2}, **overrides))
@@ -75,7 +61,7 @@ def _run(cfg, base, train_sets, test_sets):
     train, test = harness.init_datasets(cfg, train_sets, test_sets)
     exp = harness.Experiment(cfg, output_dir_base=base, device='cpu')
     try:
-        losses = {step: m['full_loss'] for step, m in
+        losses = {step: m['full_loss'] for step, m, _ in
                   harness.main_loop_iterator(exp, train, test)}
     finally:
         exp.close()
@@ -84,7 +70,7 @@ def _run(cfg, base, train_sets, test_sets):
 
 @pytest.fixture(scope='module')
 def sets():
-    return ([('train', _Clips(0, 2 * STEPS))], [('val', _Clips(1, 4))])
+    return [specs('train', 0, 2 * STEPS)], [specs('val', 1, 4)]
 
 
 @pytest.fixture(scope='module')
