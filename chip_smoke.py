@@ -85,7 +85,23 @@
    overlay video (``h5py``, ``cv2``, ``ffmpeg``, which the card's machine
    lacks) are held against eve_tpu by the CPU tests instead; here the clips
    are in memory.
-8. Prints the kernel table as one JSON line, the card, and last
+8. bfloat16 phase (``tpu_compute_dtype='bfloat16'``, full width): (a) the
+   serve phase's weights and sessions behind ``ServingEngine`` (each
+   session's chunks against one T=30 forward, 4 clips against the port's
+   CPU bfloat16 forward, both within the card's own bfloat16-vs-float32
+   drift on the same clips; forward hooks: every ResNet and RefineNet
+   convolution receives bfloat16 and the GRU float32; a profiled B=8,
+   T=10 forward whose convolution kernels must include bfloat16 ones); (b)
+   6 ``configs/refine_net.json`` steps at B = 8, T = 30 and (c) 6
+   ``configs/eye_net.json`` steps at B = 16, T = 30 through the harness,
+   parameters and Adam's moments float32, each with a profiled step, and
+   one B = 2, T = 10 bfloat16 step against the CPU (RefineNet gradients
+   within their bfloat16-vs-float32 drift); (d)
+   one Codalab batch of 128 x 30 through ``infer.iterator``. Step times,
+   frames/s, batch walls and peak memory are printed beside the float32
+   figures of the same run, and both kernels' launches are counted on
+   every path.
+9. Prints the kernel table as one JSON line, the card, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the run exits non-zero without the last line.
@@ -215,6 +231,32 @@ EYE_GRAD_LIMITS = {'card': (CMP_GRAD_ELEM, CMP_GRAD_L2),
 EVAL_T, STREAM_CHUNKS = 30, 3
 CODALAB_BATCH, CODALAB_CLIPS, CODALAB_SEQUENCES = 128, 136, 4
 CODALAB_N = CODALAB_BATCH * EVAL_T   # maps a Codalab batch renders
+# bfloat16 phase: BF16_STEPS training steps. Two faithful bfloat16 runs of
+# this model do not agree to bfloat16 precision: a convolution output one
+# ulp apart (other summation orders) moves its channel's instance-norm
+# statistics and flips other roundings, and that grows through the layers
+# (tests/test_torch_bf16.py). So the bfloat16 outputs are held against
+# their own bfloat16-vs-float32 drift on the card on the same clips, as
+# the CPU tests hold the port against eve_tpu: the chunked sessions against
+# one T=30 forward (cuDNN may pick other algorithms at other batch sizes)
+# within BF16_CHUNK_RATIO of it, and BF16_CPU_CLIPS clips on the card
+# against the port's CPU bfloat16 forward (cuDNN vs oneDNN) within
+# BF16_CPU_RATIO of it, for the BF16_KEYS outputs (the pupil head is held
+# by the CPU tests: on these weights its ReLU passes too few frames for a
+# drift to measure).
+BF16_STEPS = 6
+BF16_CHUNK_RATIO, BF16_CPU_RATIO, BF16_CPU_CLIPS = 1.0, 1.0, 4
+# One bfloat16 training step, card vs CPU (B = CMP_B, T = CMP_T): the
+# RefineNet gradients against their bfloat16-vs-float32 drift on the card,
+# all layers together within BF16_GRAD_RATIO and each within
+# BF16_LAYER_RATIO (the CPU tests' limits against eve_tpu, where the worst
+# layer reached 1.07); full_loss within BF16_LOSS_RTOL (bfloat16 keeps ~3
+# significant digits; the CPU's own full_loss moves by ~2e-3 of itself
+# when the weights are scaled by 1 + CMP_PERTURB N(0, 1), more than its
+# bfloat16-vs-float32 drift, so the loss is not held by the drift; the
+# script prints that spread).
+BF16_GRAD_RATIO, BF16_LAYER_RATIO, BF16_LOSS_RTOL = 1.0, 1.25, 1e-2
+BF16_KEYS = ('PoG_px_initial', 'g_initial', 'PoG_px_final', 'g_final')
 # Card vs CPU, the create_images maps of one streamed chunk: a heatmap lies
 # in [0, 1] and moves with the PoG it is drawn at (CPU_PX_ATOL of PoG, 3e-3
 # grid cells, moves a sigma-3 map by up to 7e-4) or with RefineNet's
@@ -590,18 +632,20 @@ def forward_clips(model, clips, device):
             for i in range(len(clips))]
 
 
-def profile_forward(model, clips, steps=3):
-    """Where one dispatch's time goes: wall ms, device-busy ms, top kernels."""
+def profile_forward(model, clips, steps=3, what='profile'):
+    """Where one dispatch's time goes: wall ms, device-busy ms, top kernels
+    (see ``profile_batch``)."""
     from eve_tpu_torch.models import eve as eve_lib
     batch = eve_lib.batch_to_tensors(
         {k: np.stack([c[k] for c in clips]) for k in clips[0]}, 'cuda')
-    profile_batch(model, batch, 'profile: forward B=%d T=%d'
-                  % (len(clips), T), steps)
+    return profile_batch(model, batch, '%s: forward B=%d T=%d'
+                         % (what, len(clips), T), steps)
 
 
 def profile_batch(model, batch, what, steps=3, warmup=2):
     """Wall ms, device-busy ms and top kernels of a forward of ``batch``
-    (device tensors); returns the busy share."""
+    (device tensors); returns ``{'wall_ms', 'busy_ms', 'busy',
+    'launches', 'kernels': {name: device ms a forward}}``."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -631,7 +675,10 @@ def profile_batch(model, batch, what, steps=3, warmup=2):
         log('%s:   %8.3f ms %5.0fx  %s'
             % (prefix, e.self_device_time_total / 1e3 / steps,
                e.count / steps, e.key[:90]))
-    return busy_ms / wall_ms
+    return {'wall_ms': wall_ms, 'busy_ms': busy_ms, 'busy': busy_ms / wall_ms,
+            'launches': launches,
+            'kernels': {e.key: e.self_device_time_total / 1e3 / steps
+                        for e in kernels}}
 
 
 def serve_phase(hk):
@@ -736,10 +783,10 @@ def serve_phase(hk):
         cpu_errs = compare(gpu_out, cpu_out, 'card vs CPU', CPU_PX_ATOL)
         log('serve: card vs CPU forward, max abs err %s'
             % json.dumps(cpu_errs))
-        profile_forward(model, [{k: v[:T] for k, v in st.items()}
-                                for st in streams])
+        profile = profile_forward(model, [{k: v[:T] for k, v in st.items()}
+                                          for st in streams])
         labelled_forward_phase(hk, model, spec)
-        return launches
+        return launches, profile
     finally:
         server.shutdown()
         server.server_close()
@@ -1083,7 +1130,7 @@ def training_phase(hk, card):
     compare_card_cpu(exp.spec, card)
     return {'launches': launches, 'per_step': per_step,
             'per_eval_batch': per_eval, 'step_ms': 1e3 * step_s,
-            'busy': busy}
+            'peak': peak, 'busy': busy}
 
 
 # ---------------------------------------------------------------------------
@@ -1482,8 +1529,9 @@ def eye_net_card_vs_cpu(spec_, card):
                             for w, (e, l) in EYE_GRAD_LIMITS.items())))
 
 
-def eye_net_phase(hk, card):
-    """(c): configs/eye_net.json at its own width, EyeNet trainable."""
+def eye_net_phase(hk, card, compute_dtype='float32'):
+    """(c): configs/eye_net.json at its own width, EyeNet trainable, in
+    ``compute_dtype`` (the card-vs-CPU gradients at float32 only)."""
     from eve_tpu_torch.config import Config
     from eve_tpu_torch.data.loader import to_device
     from eve_tpu_torch.train import harness
@@ -1492,7 +1540,9 @@ def eye_net_phase(hk, card):
     config.import_dict({'num_epochs': 1.0, 'fully_reproducible': True,
                         'checkpoints_save_every_n_steps': 1000,
                         'test_every_n_steps': 1000,
-                        'train_data_workers': 4})
+                        'train_data_workers': 4,
+                        'tpu_compute_dtype': compute_dtype})
+    what = 'eye-net' if compute_dtype == 'float32' else 'bf16 eye-net'
     if (config.batch_size, config.max_sequence_len, config.eyes_size,
             config.refine_net_enabled, config.eye_net_frozen) != (
             EYE_B, TRAIN_T, [128, 128], False, False):
@@ -1500,7 +1550,8 @@ def eye_net_phase(hk, card):
     train_data, test_data = harness.init_datasets(
         config, [spec('synthetic', 31, EYE_B * EYE_STEPS)],
         [spec('synthetic_val', 12, VAL_CLIPS)])
-    exp = harness.Experiment(config, os.path.join(TRAIN_OUT, 'eye_net'),
+    exp = harness.Experiment(config, os.path.join(TRAIN_OUT, 'eye_net_'
+                                                  + compute_dtype),
                              device=card)
     losses, walls = {}, []
 
@@ -1519,24 +1570,26 @@ def eye_net_phase(hk, card):
         exp.close()
     peak = torch.cuda.max_memory_allocated(card)
     step_s = float(np.median(walls[2:]))
-    log('eye-net: configs/eye_net.json, B=%d T=%d, %d steps: full_loss %s; '
+    log('%s: configs/eye_net.json, B=%d T=%d, %d steps: full_loss %s; '
         'kernel launches %s (want none: no RefineNet)' % (
-            EYE_B, TRAIN_T, len(losses),
+            what, EYE_B, TRAIN_T, len(losses),
             ', '.join('%.4f' % losses[k] for k in sorted(losses)), launches))
     if len(losses) != EYE_STEPS or any(launches.values()) or \
             not all(np.isfinite(v) for v in losses.values()):
-        raise AssertionError('eye_net run: %d steps, launches %s'
-                             % (len(losses), launches))
-    log('eye-net: step wall %.1f ms (median of steps 3-%d, data wait and a '
+        raise AssertionError('%s run: %d steps, launches %s'
+                             % (what, len(losses), launches))
+    check_float32_state(exp.state, what)
+    log('%s: step wall %.1f ms (median of steps 3-%d, data wait and a '
         'loss read included), %.1f training frames/s, peak device memory '
         '%.2f GiB (%s); walls ms %s' % (
-            1e3 * step_s, EYE_STEPS, EYE_B * TRAIN_T / step_s,
+            what, 1e3 * step_s, EYE_STEPS, EYE_B * TRAIN_T / step_s,
             peak / 2 ** 30, card_line(),
             ', '.join('%.1f' % (1e3 * w) for w in walls)))
     batch, _ = to_device(next(iter(train_data['synthetic']['dataloader'])),
                          card)
-    profile_train_step(exp.state, batch, card, what='eye-net profile')
-    eye_net_card_vs_cpu(exp.spec, card)
+    profile_train_step(exp.state, batch, card, what=what + ' profile')
+    if compute_dtype == 'float32':
+        eye_net_card_vs_cpu(exp.spec, card)
     return {'step_ms': 1e3 * step_s, 'peak': peak, 'launches': launches}
 
 
@@ -1793,14 +1846,355 @@ def eval_phase(hk, card):
     device_batch, _ = to_device(collate(clips.clips[:batch_size]), card)
     busy = profile_batch(model, device_batch, 'eval profile: Codalab batch '
                          'B=%d T=%d' % (batch_size, EVAL_T), steps=1,
-                         warmup=0)
+                         warmup=0)['busy']
     return {'launches': {k: stream_launches[k] + launches[k]
                          for k in launches},
             'per_chunk': {k: v // STREAM_CHUNKS
                           for k, v in stream_launches.items()},
             'per_batch': {k: v // n_batches for k, v in launches.items()},
             'frames_per_s': CODALAB_CLIPS * EVAL_T / wall, 'peak': peak,
+            'batch_s': walls[0], 'busy': busy}
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 phase
+# ---------------------------------------------------------------------------
+
+def check_float32_state(state, what):
+    """The parameters and Adam's moments are float32 (the networks may
+    compute in bfloat16)."""
+    dtypes = {p.dtype for p in state.model.parameters()} | {
+        v.dtype for st in state.optimizer.state.values()
+        for v in st.values() if isinstance(v, torch.Tensor) and v.ndim}
+    if dtypes != {torch.float32}:
+        raise AssertionError('%s: parameters and optimizer state in %s'
+                             % (what, dtypes))
+
+
+def input_types(model, batch):
+    """The input types that every convolution of the ResNet and of
+    RefineNet, and each EyeNet cell, receive in one forward of ``batch``:
+    ``{'conv': {...}, 'cell': {...}}``."""
+    seen = {'conv': set(), 'cell': set()}
+    handles = []
+    for root in (model.eye_net.cnn_layers, model.refine_net):
+        for m in root.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                handles.append(m.register_forward_pre_hook(
+                    lambda mod, args: seen['conv'].add(args[0].dtype)))
+    for cell in model.eye_net.rnn_cells:
+        handles.append(cell.register_forward_pre_hook(
+            lambda mod, args: seen['cell'].update(
+                a.dtype for a in args if isinstance(a, torch.Tensor))))
+    try:
+        with torch.inference_mode():
+            model(batch, output_predictions=True)
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def drift_ratios(got, want, want32, what, limit):
+    """Per key of BF16_KEYS: the largest error of ``got`` against the
+    bfloat16 outputs ``want``, over the largest drift of ``want`` from the
+    float32 outputs ``want32`` (lists of per-clip output dicts); each must
+    stay below ``limit``."""
+    ratios = {}
+    for k in BF16_KEYS:
+        a, b, c = (np.stack([np.asarray(o[k], np.float64) for o in outs])
+                   for outs in (got, want, want32))
+        err, drift = float(np.abs(a - b).max()), float(np.abs(b - c).max())
+        ratios[k] = err / drift
+        log('%s: %s error %.4g, bfloat16-vs-float32 drift %.4g, ratio %.3f'
+            % (what, k, err, drift, ratios[k]))
+        if not ratios[k] < limit:
+            raise AssertionError('%s: %s error %g is not below %g of the '
+                                 'drift %g' % (what, k, err, limit, drift))
+    return ratios
+
+
+def bf16_serve_phase(hk):
+    """(a): the serve phase's model and sessions at bfloat16."""
+    import dataclasses
+
+    from eve_tpu_torch.config import Config
+    from eve_tpu_torch.models import eve as eve_lib
+    from eve_tpu_torch.serve import ServingEngine
+
+    config = Config()
+    config.import_json(CONFIG)
+    config.import_dict({'tpu_compute_dtype': 'bfloat16'})
+    spec = eve_lib.EveSpec.from_config(config)
+    with torch.device('meta'):  # names and shapes only
+        skeleton = eve_lib.EVE(spec)
+    state_dict = random_state_dict(skeleton)  # the serve phase's weights
+    engine = ServingEngine(spec, state_dict, device='cuda',
+                           max_batch=MAX_BATCH, max_delay_ms=20.0)
+    try:
+        streams = client_clips(1, SESSIONS, CHUNKS * T)
+        engine.infer(client_clips(2, 3, T)[2], timeout=600)  # warm-up
+        torch.cuda.synchronize()
+
+        # --- the bfloat16 serving path, counted ---
+        hk.reset_launch_counts()
+        batches_before = engine.get_stats()['batches']
+        start = time.perf_counter()
+        sids = [engine.open_session() for _ in range(SESSIONS)]
+        futures = {(s, c): engine.submit(
+            {k: v[c * T:(c + 1) * T] for k, v in streams[s].items()}, sid)
+            for c in range(CHUNKS) for s, sid in enumerate(sids)}
+        results = {key: f.result(timeout=600) for key, f in futures.items()}
+        wall = time.perf_counter() - start
+        launches = dict(hk.LAUNCHES)
+        dispatches = engine.get_stats()['batches'] - batches_before
+        # --- end of the counted run ---
+        log('bf16 serve: %d requests (%d frames) in %d dispatches, %.3f s, '
+            '%.2f requests/s; kernel launches %s' % (
+                len(results), len(results) * T, dispatches, wall,
+                len(results) / wall, launches))
+        for name in ('render_heatmaps', 'soft_argmax'):
+            if launches[name] != dispatches or dispatches == 0:
+                raise AssertionError('bf16 serve: %s launched %d times over '
+                                     '%d dispatches' % (name, launches[name],
+                                                        dispatches))
+        for key, out in results.items():
+            check_outputs(out, T, 'bf16 request %s' % (key,))
+
+        model = engine.model
+        model32 = eve_lib.build_model(
+            dataclasses.replace(spec, compute_dtype='float32'), state_dict,
+            'cuda')
+        chunked = [{k: np.concatenate([results[(s, c)][k]
+                                       for c in range(CHUNKS)])
+                    for k in results[(s, 0)]} for s in range(SESSIONS)]
+        drift_ratios(chunked, forward_clips(model, streams, 'cuda'),
+                     forward_clips(model32, streams, 'cuda'),
+                     'bf16 serve: chunked sessions vs one T=%d forward'
+                     % (CHUNKS * T), BF16_CHUNK_RATIO)
+        clips = [{k: v[:T] for k, v in st.items()}
+                 for st in streams[:BF16_CPU_CLIPS]]
+        cpu_model = eve_lib.build_model(spec, state_dict, 'cpu')
+        drift_ratios(forward_clips(model, clips, 'cuda'),
+                     forward_clips(cpu_model, clips, 'cpu'),
+                     forward_clips(model32, clips, 'cuda'),
+                     'bf16 serve: %d clips, card vs CPU' % len(clips),
+                     BF16_CPU_RATIO)
+        del cpu_model, model32
+
+        from eve_tpu_torch.models.eve import batch_to_tensors
+        first = {k: np.stack([st[k][:T] for st in streams])
+                 for k in streams[0]}
+        types = input_types(model, batch_to_tensors(first, 'cuda'))
+        log('bf16 serve: convolutions receive %s, the EyeNet cells %s'
+            % (sorted(map(str, types['conv'])),
+               sorted(map(str, types['cell']))))
+        if types != {'conv': {torch.bfloat16}, 'cell': {torch.float32}}:
+            raise AssertionError('bf16 serve: input types %s' % types)
+        profile = profile_forward(model, [{k: v[:T] for k, v in st.items()}
+                                          for st in streams],
+                                  what='bf16 profile')
+        conv = {k: v for k, v in profile['kernels'].items()
+                if any(w in k.lower() for w in ('conv', 'fprop'))}
+        conv_bf16 = sum(v for k, v in conv.items() if 'bf16' in k.lower())
+        log('bf16 profile: convolution kernels %.3f ms a forward, %.3f ms '
+            'of them named bf16: %s' % (sum(conv.values()), conv_bf16,
+                                        sorted(conv)[:8]))
+        if not conv_bf16:
+            raise AssertionError('bf16 serve: no bf16 convolution kernel in '
+                                 'the profile: %s' % sorted(conv))
+        return {'launches': launches, 'dispatches': dispatches,
+                'requests_per_s': len(results) / wall, 'profile': profile}
+    finally:
+        engine.stop()
+
+
+def bf16_gradients_card_vs_cpu(spec16, card):
+    """One B=CMP_B, T=CMP_T bfloat16 training step (frozen EyeNet) from
+    seeded weights, batch and kappas, on the card and on the CPU: full_loss
+    within BF16_LOSS_RTOL, and the RefineNet gradients against their own
+    bfloat16-vs-float32 drift on the card (a layer is a module's weight and
+    bias together): all layers together within BF16_GRAD_RATIO of it, each
+    layer within BF16_LAYER_RATIO. The card's spread between two of its own
+    steps, and the CPU's under a CMP_PERTURB weight perturbation, are
+    printed beside."""
+    import dataclasses
+
+    from eve_tpu_torch.models import eve as eve_lib
+    from eve_tpu_torch.train import harness
+    from eve_tpu_torch.train import step as step_lib
+    with torch.device('meta'):  # names and shapes only
+        skeleton = eve_lib.EVE(spec16)
+    state_dict = random_state_dict(skeleton, seed=5)
+    clips = synthetic_clips(7, CMP_B, CMP_T)
+    batch = {k: np.stack([c[k] for c in clips]) for k in clips[0]}
+    spec32 = dataclasses.replace(spec16, compute_dtype='float32')
+    noise = torch.Generator().manual_seed(1)
+    perturbed = {k: v * (1 + CMP_PERTURB * torch.randn(v.shape,
+                                                       generator=noise))
+                 if k.startswith('refine_net.') else v
+                 for k, v in state_dict.items()}
+    perturbed_what = 'CPU under a %g weight perturbation' % CMP_PERTURB
+    loss, grads = {}, {}
+    for what, spec_, device, weights in (
+            ('CPU', spec16, 'cpu', state_dict),
+            (perturbed_what, spec16, 'cpu', perturbed),
+            ('card', spec16, card, state_dict),
+            ('card again', spec16, card, state_dict),
+            ('card float32', spec32, card, state_dict)):
+        model = eve_lib.build_model(spec_, weights, device)
+        out = step_lib.accumulate_gradients(
+            model, eve_lib.batch_to_tensors(batch, device),
+            harness.kappa_generator(0, 1000))
+        loss[what] = out['full_loss'].item()
+        grads[what] = {n: p.grad.cpu() for n, p
+                       in model.refine_net.named_parameters()
+                       if p.grad is not None}
+        if {g.dtype for g in grads[what].values()} != {torch.float32}:
+            raise AssertionError('bf16 gradients: %s' % what)
+
+    def layer_sq(a, b):
+        out = {}
+        for name, g in a.items():
+            layer = name.rsplit('.', 1)[0]
+            out[layer] = out.get(layer, 0.0) + float(((g - b[name]) ** 2).sum())
+        return out
+
+    drift = layer_sq(grads['card'], grads['card float32'])
+    ratios = {}
+    for what in ('CPU', 'card again', perturbed_what):
+        ref = 'CPU' if what == perturbed_what else 'card'
+        err = layer_sq(grads[what], grads[ref])
+        total = (sum(err.values()) / sum(drift.values())) ** 0.5
+        worst = max(((err[k] / drift[k]) ** 0.5, k) for k in err if drift[k])
+        ratios[what] = (total, worst)
+        log('bf16 train: %s vs %s, B=%d T=%d: full_loss %.7f vs %.7f '
+            '(float32 on the card %.7f); RefineNet gradients\' L2 error '
+            '%.3g of their bfloat16-vs-float32 drift, worst layer %.3g (%s)'
+            % (what, ref, CMP_B, CMP_T, loss[what], loss[ref],
+               loss['card float32'], total, worst[0], worst[1]))
+    total, worst = ratios['CPU']
+    if abs(loss['CPU'] - loss['card']) > BF16_LOSS_RTOL * abs(loss['CPU']) \
+            or not total < BF16_GRAD_RATIO or not worst[0] < BF16_LAYER_RATIO:
+        raise AssertionError('bf16 card vs CPU step: full_loss %g vs %g, '
+                             'gradients %s' % (loss['card'], loss['CPU'],
+                                               ratios['CPU']))
+
+
+def bf16_training_phase(hk, card):
+    """(b): configs/refine_net.json training steps at bfloat16."""
+    from eve_tpu_torch.data.loader import to_device
+    from eve_tpu_torch.train import harness
+
+    train_sets = [spec('synthetic_bf16', 13, TRAIN_B * BF16_STEPS)]
+    test_sets = [spec('synthetic_val', 12, VAL_CLIPS)]
+    config = train_config(tpu_compute_dtype='bfloat16',
+                          checkpoints_save_every_n_steps=1000,
+                          test_every_n_steps=1000)
+    torch.cuda.reset_peak_memory_stats(card)
+    (exp, losses, walls), launches = counted(hk, lambda: run_training(
+        config, train_sets, test_sets, card))
+    peak = torch.cuda.max_memory_allocated(card)
+    steps = len(losses)
+    log('bf16 train: %d steps, full_loss %s; kernel launches %s' % (
+        steps, ', '.join('%.5f' % losses[k] for k in sorted(losses)),
+        launches))
+    if steps != BF16_STEPS or launches != {'render_heatmaps': 3 * steps,
+                                           'soft_argmax': steps}:
+        raise AssertionError('bf16 training: %d steps, launches %s'
+                             % (steps, launches))
+    check_float32_state(exp.state, 'bf16 train')
+    step_s = float(np.median(walls[2:]))
+    loader = harness.init_datasets(config, train_sets, test_sets)[0][
+        'synthetic_bf16']['dataloader']
+    batch, _ = to_device(next(iter(loader)), card)
+    busy = profile_train_step(exp.state, batch, card,
+                              what='bf16 train profile')
+    bf16_gradients_card_vs_cpu(exp.spec, card)
+    return {'launches': launches, 'step_ms': 1e3 * step_s, 'peak': peak,
             'busy': busy}
+
+
+def bf16_codalab_phase(hk, card):
+    """(d): one Codalab batch of CODALAB_BATCH clips at bfloat16."""
+    from eve_tpu_torch import infer
+    from eve_tpu_torch.data.loader import DataLoader, collate, to_device
+    from eve_tpu_torch.models import eve as eve_lib
+
+    config = eval_config(tpu_compute_dtype='bfloat16')
+    spec_ = eve_lib.EveSpec.from_config(config)
+    with torch.device('meta'):  # names and shapes only
+        skeleton = eve_lib.EVE(spec_)
+    model = eve_lib.build_model(spec_, random_state_dict(skeleton, seed=21),
+                                card)
+    clips = EvalClips(41, CODALAB_BATCH, EVAL_T, sequences=CODALAB_SEQUENCES,
+                      labels=False)
+
+    def batches():
+        return [out for _, _, out in infer.iterator(
+            model, DataLoader(clips, CODALAB_BATCH,
+                              num_workers=config.codalab_eval_data_workers),
+            create_images=False, materialize_inputs=False)]
+
+    batches()  # warm-up
+    torch.cuda.reset_peak_memory_stats(card)
+    start = time.perf_counter()
+    outs, launches = counted(hk, batches)
+    wall = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated(card)
+    log('bf16 eval: Codalab batch of %d clips of T=%d: %.3f s, %.1f frames/s '
+        '(loading and copies included), peak device memory %.2f GiB; '
+        'kernel launches %s' % (CODALAB_BATCH, EVAL_T, wall,
+                                CODALAB_BATCH * EVAL_T / wall,
+                                peak / 2 ** 30, launches))
+    if len(outs) != 1 or launches != {'render_heatmaps': 1,
+                                      'soft_argmax': 1}:
+        raise AssertionError('bf16 Codalab: %d batches, launches %s'
+                             % (len(outs), launches))
+    if outs[0]['PoG_px_final'].shape != (CODALAB_BATCH, EVAL_T, 2):
+        raise AssertionError('bf16 Codalab: PoG_px_final %s'
+                             % (outs[0]['PoG_px_final'].shape,))
+    check_finite(outs[0], ('PoG_px_initial', 'PoG_px_final', 'g_final',
+                           'left_pupil_size'), 'bf16 Codalab batch')
+    device_batch, _ = to_device(collate(clips.clips), card)
+    busy = profile_batch(model, device_batch, 'bf16 eval profile: Codalab '
+                         'batch B=%d T=%d' % (CODALAB_BATCH, EVAL_T),
+                         steps=1, warmup=0)['busy']
+    return {'launches': launches, 'batch_s': wall, 'peak': peak,
+            'busy': busy}
+
+
+def bf16_phase(hk, card, f32):
+    """The bfloat16 compute path at full width, each figure beside the
+    float32 one of this run (``f32``)."""
+    serve = bf16_serve_phase(hk)
+    train = bf16_training_phase(hk, card)
+    eye = eye_net_phase(hk, card, compute_dtype='bfloat16')
+    codalab = bf16_codalab_phase(hk, card)
+    prof, prof32 = serve['profile'], f32['serve_profile']
+    log('bf16 vs float32 (%s): serving forward B=%d T=%d %.2f ms wall vs '
+        '%.2f, device busy %.2f ms vs %.2f, %.0f launches vs %.0f'
+        % (card_line(), SESSIONS, T, prof['wall_ms'], prof32['wall_ms'],
+           prof['busy_ms'], prof32['busy_ms'], prof['launches'],
+           prof32['launches']))
+    for what, ours, theirs, b in (
+            ('configs/refine_net.json training', train, f32['train'],
+             TRAIN_B),
+            ('configs/eye_net.json training', eye, f32['eye_net'], EYE_B)):
+        log('bf16 vs float32: %s step B=%d T=%d %.1f ms vs %.1f, %.1f '
+            'training frames/s vs %.1f, peak %.2f GiB vs %.2f' % (
+                what, b, TRAIN_T, ours['step_ms'], theirs['step_ms'],
+                1e3 * b * TRAIN_T / ours['step_ms'],
+                1e3 * b * TRAIN_T / theirs['step_ms'],
+                ours['peak'] / 2 ** 30, theirs['peak'] / 2 ** 30))
+    log('bf16 vs float32: Codalab batch B=%d T=%d %.3f s vs %.3f, %.1f '
+        'frames/s vs %.1f, peak %.2f GiB vs %.2f' % (
+            CODALAB_BATCH, EVAL_T, codalab['batch_s'], f32['eval']['batch_s'],
+            CODALAB_BATCH * EVAL_T / codalab['batch_s'],
+            CODALAB_BATCH * EVAL_T / f32['eval']['batch_s'],
+            codalab['peak'] / 2 ** 30, f32['eval']['peak'] / 2 ** 30))
+    return {'serve': serve['launches'], 'train': train['launches'],
+            'eye_net': eye['launches'], 'codalab': codalab['launches']}
 
 
 def main():
@@ -1834,10 +2228,13 @@ def main():
     errs = kernel_phase(hk)
     timings = kernel_timings(hk, SESSIONS * T)
     timings_eval = kernel_timings(hk, CODALAB_N)
-    launches = serve_phase(hk)
+    launches, serve_profile = serve_phase(hk)
     train = training_phase(hk, torch.device('cuda', 0))
     cli = train_cli_phase(hk, torch.device('cuda', 0))
     evals = eval_phase(hk, torch.device('cuda', 0))
+    bf16 = bf16_phase(hk, torch.device('cuda', 0), {
+        'serve_profile': serve_profile, 'train': train,
+        'eye_net': cli['eye_net'], 'eval': evals})
 
     source = 'eve_tpu_torch/csrc/heatmap_kernels.cu'
     replaces = {'render_heatmaps': 'eve_tpu/kernels/heatmap_kernels.py:38',
@@ -1855,6 +2252,10 @@ def main():
                      'eval_launches': evals['launches'][name],
                      'launches_per_streamed_chunk': evals['per_chunk'][name],
                      'launches_per_codalab_batch': evals['per_batch'][name],
+                     'bf16_serve_launches': bf16['serve'][name],
+                     'bf16_train_launches': bf16['train'][name],
+                     'bf16_eye_net_train_launches': bf16['eye_net'][name],
+                     'bf16_codalab_launches': bf16['codalab'][name],
                      'max_abs_err': errs[name],
                      'n%d' % CODALAB_N: timings_eval[name]},
                     **timings[name])

@@ -43,7 +43,7 @@ logger = logging.getLogger(__name__)
 # slice that uses them lands (see ROADMAP.md). ``tpu_use_pallas`` stays
 # here for good: the port always launches its kernels on a CUDA tensor.
 DEFERRED_KEYS = frozenset((
-    'tpu_native_refine_head', 'tpu_native_stem', 'export_batch_size',
+    'tpu_native_stem', 'export_batch_size',
     'export_path', 'export_streaming', 'note', 'prefetch_buffer_size',
     'tpu_compile_cache_dir', 'tpu_coordinator_address', 'tpu_num_processes',
     'tpu_on_device_preprocess', 'tpu_process_id', 'tpu_use_pallas',
@@ -107,7 +107,8 @@ class Config:
     codalab_eval_data_workers = 1
 
     # Devices of the data-parallel mesh; 0 = all. The port runs one device:
-    # an eval entry point raises above 1 (multi-GPU is a later slice).
+    # training and the eval entry points raise above 1 (multi-GPU is a
+    # later slice).
     tpu_num_devices = 0
 
     # Run directory to load weights from, or to resume training
@@ -227,11 +228,18 @@ class Config:
     gaze_heatmap_sigma_final = 5.0  # in pixels
     gaze_history_map_decay_per_ms = 0.999
 
-    # Compute type of the networks: 'float32' (bfloat16 is a later slice).
+    # Compute type of the networks: 'bfloat16' runs them in bfloat16 (the
+    # parameters, optimizer state, checkpoints, geometry, losses and
+    # heatmap kernels stay float32); any other value runs float32, as in
+    # eve_tpu.
     tpu_compute_dtype = 'float32'
     # The opt-in TPU-native topology is a later slice; the key is read so
     # that a config which sets it fails loudly.
     tpu_native_arch = False
+    # RefineNet's readout: 'heatmap' (the reference's); 'gated' belongs to
+    # the opt-in topology. With RefineNet enabled, any other value, or
+    # 'gated' without tpu_native_arch, raises (eve_tpu's checks).
+    tpu_native_refine_head = 'heatmap'
     # Reference quirk: a CLSTM bottleneck carries only its state.
     reference_compat_clstm_carry_only = True
 

@@ -7,11 +7,15 @@ reproduces their gate math and parameter layout (``weight_ih``,
 ``CGRUCell``: 3x3 convolutions over the channel concatenation ``[x, h]``.
 
 Every cell maps ``(x, state) -> (output, new_state)``; the LSTM cells carry
-``(h, c)`` tuples.
+``(h, c)`` tuples. A conv cell computes in its input's type (its
+convolutions cast their parameters to it), so bfloat16 states and input
+keep it in bfloat16; the dense cells run float32.
 """
 
 import torch
 import torch.nn as nn
+
+from eve_tpu_torch.models.layers import Conv2d
 
 
 class RNNCell(nn.RNNCell):
@@ -48,7 +52,7 @@ class ConvRNNCell(nn.Module):
     def __init__(self, input_size, hidden_size):
         super().__init__()
         self.hidden_size = hidden_size
-        self.cell = nn.Conv2d(input_size + hidden_size, hidden_size, 3, 1, 1)
+        self.cell = Conv2d(input_size + hidden_size, hidden_size, 3, 1, 1)
 
     def forward(self, x, h):
         new_h = torch.tanh(self.cell(torch.cat([x, h], dim=1)))
@@ -62,8 +66,8 @@ class ConvLSTMCell(nn.Module):
     def __init__(self, input_size, hidden_size):
         super().__init__()
         self.hidden_size = hidden_size
-        self.gates = nn.Conv2d(input_size + hidden_size, 4 * hidden_size,
-                               3, 1, 1)
+        self.gates = Conv2d(input_size + hidden_size, 4 * hidden_size,
+                            3, 1, 1)
 
     def forward(self, x, state):
         h, c = state
@@ -82,9 +86,9 @@ class ConvGRUCell(nn.Module):
     def __init__(self, input_size, hidden_size):
         super().__init__()
         self.hidden_size = hidden_size
-        self.gates_1 = nn.Conv2d(input_size + hidden_size, 2 * hidden_size,
-                                 3, 1, 1)
-        self.gate_2 = nn.Conv2d(input_size + hidden_size, hidden_size, 3, 1, 1)
+        self.gates_1 = Conv2d(input_size + hidden_size, 2 * hidden_size,
+                              3, 1, 1)
+        self.gate_2 = Conv2d(input_size + hidden_size, hidden_size, 3, 1, 1)
 
     def forward(self, x, h):
         reset, update = torch.sigmoid(
@@ -100,7 +104,8 @@ CONV_CELLS = {'CRNN': ConvRNNCell, 'CLSTM': ConvLSTMCell, 'CGRU': ConvGRUCell}
 
 def zero_state(cell_cls, hidden_size, batch_size, hw=None, device=None,
                dtype=torch.float32):
-    """Zero initial state for a cell class: (B, C) or (B, C, H, W)."""
+    """Zero initial state for a cell class: (B, C) or (B, C, H, W), of the
+    caller's ``dtype`` (the conv cells': the network's compute type)."""
     shape = ((batch_size, hidden_size) if hw is None
              else (batch_size, hidden_size, hw[0], hw[1]))
     z = torch.zeros(shape, dtype=dtype, device=device)

@@ -30,8 +30,16 @@ frame's screen, initial, refined and ground-truth heatmaps, and, with
 labels, the decayed gaze histories. The history-sigma map of the initial
 estimate is rendered in the same launch as the initial heatmap (a second
 sigma), so the render still launches once for the estimate and once for
-the labels. The bfloat16 compute type, the opt-in TPU-native topology, the
-sequence mesh and rematerialization are later slices.
+the labels.
+
+``EveSpec.compute_dtype`` 'bfloat16' runs the networks in bfloat16 (any
+other value runs float32, as in eve_tpu), with eve_tpu's casts: eye frames
+are normalised in float32 and cast before they are stacked; ResNet-18 and
+RefineNet compute in bfloat16 and return float32 (see their modules);
+``fc_common``, the dense cells and the heads run float32; the RefineNet
+states are bfloat16. The parameters, the geometry, the losses, both heatmap
+kernels and the soft-argmax stay float32. The opt-in TPU-native topology,
+the sequence mesh and rematerialization are later slices.
 """
 
 import contextlib
@@ -91,16 +99,37 @@ class EveSpec:
     loss_coeff_heatmap_ce_initial: float = 0.0
     loss_coeff_heatmap_ce_final: float = 1.0
     loss_coeff_heatmap_mse_final: float = 0.0
-    # Compute type of the networks
+    # Compute type of the networks: 'bfloat16', or float32 for any other
+    # value (eve_tpu's rule)
     compute_dtype: str = 'float32'
+
+    @property
+    def dtype(self):
+        """The networks' torch compute type."""
+        return (torch.bfloat16 if self.compute_dtype == 'bfloat16'
+                else torch.float32)
 
     @classmethod
     def from_config(cls, config):
-        """Build from an ``eve_tpu_torch.config.Config``."""
+        """Build from an ``eve_tpu_torch.config.Config``.
+
+        With RefineNet enabled, ``tpu_native_refine_head`` must be
+        'heatmap' (eve_tpu raises the same ``ValueError``s when it builds
+        the RefineNet; 'gated' needs the opt-in topology).
+        """
         if config.tpu_native_arch:
             raise NotImplementedError(
                 'tpu_native_arch (the opt-in topology) is a later slice of '
                 'the port; see ROADMAP.md')
+        head = config.tpu_native_refine_head
+        if config.refine_net_enabled and head != 'heatmap':
+            if head != 'gated':
+                raise ValueError(
+                    "Unknown tpu_native_refine_head %r (expected 'heatmap' "
+                    "or 'gated')" % (head,))
+            raise ValueError(
+                "tpu_native_refine_head='gated' requires tpu_native_arch "
+                "(the reference topology keeps the reference readout)")
         return cls(
             eye_net_use_rnn=config.eye_net_use_rnn,
             eye_net_rnn_type=config.eye_net_rnn_type,
@@ -144,11 +173,12 @@ class EveSpec:
         )
 
 
-def _to_compute(x):
-    """Camera frames to float32; uint8 gets ``*2/255-1`` on the device."""
+def _to_compute(x, dtype):
+    """Camera frames to ``dtype``; uint8 gets ``*2/255-1`` in float32 on
+    the device first."""
     if x.dtype == torch.uint8:
-        return x.float() * (2.0 / 255.0) - 1.0
-    return x.float()
+        return (x.float() * (2.0 / 255.0) - 1.0).to(dtype)
+    return x.to(dtype)
 
 
 def _screen_to_float(x):
@@ -192,18 +222,14 @@ class EVE(nn.Module):
 
     def __init__(self, spec: EveSpec):
         super().__init__()
-        if spec.compute_dtype != 'float32':
-            raise NotImplementedError(
-                'compute_dtype=%r: the port runs float32; the bfloat16 '
-                'compute path is a later slice (see ROADMAP.md)'
-                % spec.compute_dtype)
         self.spec = spec
         self.eye_net = EyeNet(
             num_features=spec.eye_net_num_features,
             use_rnn=spec.eye_net_use_rnn,
             rnn_type=spec.eye_net_rnn_type,
             rnn_num_cells=spec.eye_net_rnn_num_cells,
-            use_head_pose_input=spec.eye_net_use_head_pose_input)
+            use_head_pose_input=spec.eye_net_use_head_pose_input,
+            compute_dtype=spec.dtype)
         self.refine_net = None
         if spec.refine_net_enabled:
             self.refine_net = RefineNet(
@@ -213,7 +239,8 @@ class EVE(nn.Module):
                 rnn_type=spec.refine_net_rnn_type,
                 rnn_num_cells=spec.refine_net_rnn_num_cells,
                 num_features=spec.refine_net_num_features,
-                clstm_carry_only=spec.clstm_carry_only)
+                clstm_carry_only=spec.clstm_carry_only,
+                compute_dtype=spec.dtype)
         if spec.eye_net_frozen:
             # As the reference freezes it: no gradient, no optimizer state.
             self.eye_net.requires_grad_(False)
@@ -288,7 +315,7 @@ class EVE(nn.Module):
             w, h = spec.gaze_heatmap_size
             screen = None
             if spec.load_screen_content:
-                sf = _screen_to_float(full['screen_frame']).float()
+                sf = _screen_to_float(full['screen_frame']).to(spec.dtype)
                 screen = _nhwc_to_nchw(sf.reshape((BT,) + sf.shape[2:]))
             net_in = refine_net.assemble_input(
                 interm['heatmap_initial'].reshape(BT, h, w), screen,
@@ -369,10 +396,11 @@ class EVE(nn.Module):
         left = full['left_eye_patch']
 
         # --- Stage 1: CNN features for all frames and both eyes ---
+        # Cast before the stack, as eve_tpu: the copy moves the compute
+        # type's bytes.
         patches = _nhwc_to_nchw(torch.cat([
-            _to_compute(full['left_eye_patch']).reshape((BT,) + left.shape[2:]),
-            _to_compute(full['right_eye_patch']).reshape((BT,) + left.shape[2:]),
-        ], dim=0))
+            _to_compute(full[k], spec.dtype).reshape((BT,) + left.shape[2:])
+            for k in ('left_eye_patch', 'right_eye_patch')], dim=0))
         head_pose = None
         if spec.eye_net_use_head_pose_input:
             head_pose = torch.cat([full['left_h'].reshape(BT, 2),
@@ -639,7 +667,8 @@ def init_stream_state(spec, batch_size, device=None):
     """Zero recurrent state for streaming (chunked) inference.
 
     ``{'eye_left', 'eye_right'[, 'refine']}``, each a tuple with one state
-    per cell; conv states are NCHW (B, C, 5, 8).
+    per cell; conv states are NCHW (B, C, 5, 8). The EyeNet states are
+    float32, the RefineNet states of the compute type.
     """
     def eye():
         if not spec.eye_net_use_rnn:
@@ -654,7 +683,7 @@ def init_stream_state(spec, batch_size, device=None):
         state['refine'] = () if not spec.refine_net_use_rnn else tuple(
             zero_state(CONV_CELLS[spec.refine_net_rnn_type],
                        spec.refine_net_num_features, batch_size,
-                       hw=LEVEL_SHAPES[4], device=device)
+                       hw=LEVEL_SHAPES[4], device=device, dtype=spec.dtype)
             for _ in range(spec.refine_net_rnn_num_cells))
     return state
 

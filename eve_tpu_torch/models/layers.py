@@ -1,21 +1,67 @@
-"""Shared layers, NCHW: instance norm, adaptive max-pool, bilinear resize.
+"""Shared layers, NCHW: convolution, instance norm, adaptive max-pool,
+bilinear resize.
 
 The counterpart of ``eve_tpu/models/layers.py``. eve_tpu emulates torch's
 own semantics (adaptive max-pool windows, bilinear resize with
 ``align_corners=False``), so here they are torch's functions.
+
+Compute type: the parameters are float32 whatever the network computes in.
+A bfloat16 activation times a float32 parameter would promote to float32
+and silently run the rest of the network in float32, so every layer that
+holds a parameter casts it to the activation's type, as eve_tpu's layers
+do (``kernel.astype(x.dtype)``).
 """
+
+import functools
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (the same state_dict names) that computes in its
+    input's type: the weight and bias are cast to ``x.dtype``.
+
+    At float32 this is ``nn.Conv2d`` itself, the bias fused into the
+    convolution. At bfloat16 the bias is added after the convolution, in
+    bfloat16, as eve_tpu's ``Conv`` adds it (``y + bias.astype(x.dtype)``):
+    a fused bias rounds the sum once, eve_tpu rounds the convolution and
+    then the sum, and the two differ by a bfloat16 ulp at about a third of
+    the outputs (measured on the CPU, where the separate add matches
+    eve_tpu's outputs bitwise). At float32 the two orders differ in the
+    last bit only, and the fused form saves a pass over the output.
+    """
+
+    def forward(self, x):
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        y = self._conv_forward(x, self.weight.to(x.dtype), None)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(x.dtype)[:, None, None]
+
+
 class InstanceNorm(nn.Module):
     """InstanceNorm2d: biased variance, eps 1e-5, no running statistics.
 
     ``affine`` adds ``weight``/``bias`` (the reference's state_dict names).
-    The statistics are float32: the port runs float32 only (bfloat16 is a
-    later slice).
+    The statistics are float32 for any input type (eve_tpu's
+    ``instance_norm``):
+
+    - float32 input: two-pass statistics, ``(x - mean) * rsqrt(var + eps)``.
+    - bfloat16 input: one-pass float32 statistics (``E[x^2] - E[x]^2``,
+      clamped at 0); the affine weight and bias fold into a float32
+      ``scale`` and ``shift``, which are cast to bfloat16 and applied as
+      ``x * scale + shift`` in bfloat16.
+
+    A 1x1 map normalises to 0 (then ``bias``), as the reference model's
+    norm gives. The float32 form gets there by itself; in the bfloat16 form
+    ``x * scale`` and ``shift`` round separately at a scale of
+    ``rsqrt(eps)`` ~ 316, and eve_tpu leaves their difference (up to 16,
+    measured) where the map should be 0, so the port returns the exact
+    value there instead. Only ResNet-18's layer4 below 33 px eyes meets a
+    1x1 map.
     """
 
     def __init__(self, num_features, affine=False, eps=1e-5):
@@ -30,15 +76,49 @@ class InstanceNorm(nn.Module):
             self.register_parameter('bias', None)
 
     def forward(self, x):
-        # Two-pass statistics, as eve_tpu; unlike F.instance_norm this also
-        # takes 1x1 maps (which it maps to 0, as the reference model does).
-        mean = x.mean(dim=(-2, -1), keepdim=True)
-        xc = x - mean
-        var = (xc * xc).mean(dim=(-2, -1), keepdim=True)
-        y = xc * torch.rsqrt(var + self.eps)
+        if x.dtype == torch.float32:
+            # Two-pass statistics, as eve_tpu; unlike F.instance_norm this
+            # also takes 1x1 maps (which it maps to 0).
+            mean = x.mean(dim=(-2, -1), keepdim=True)
+            xc = x - mean
+            var = (xc * xc).mean(dim=(-2, -1), keepdim=True)
+            y = xc * torch.rsqrt(var + self.eps)
+            if self.weight is not None:
+                y = y * self.weight[:, None, None] + self.bias[:, None, None]
+            return y
+        if x.shape[-2] * x.shape[-1] == 1:
+            y = torch.zeros_like(x)
+            if self.bias is not None:
+                y = y + self.bias.to(x.dtype)[:, None, None]
+            return y
+        xf = x.float()
+        mean = xf.mean(dim=(-2, -1), keepdim=True)
+        ex2 = (xf * xf).mean(dim=(-2, -1), keepdim=True)
+        scale = torch.rsqrt(torch.clamp(ex2 - mean * mean, min=0.0) +
+                            self.eps)
         if self.weight is not None:
-            y = y * self.weight[:, None, None] + self.bias[:, None, None]
-        return y
+            scale = scale * self.weight[:, None, None]
+        shift = -mean * scale
+        if self.bias is not None:
+            shift = shift + self.bias[:, None, None]
+        return x * scale.to(x.dtype) + shift.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value, dtype):
+    """``value`` rounded to ``dtype``, as a Python float."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+class LeakyReLU(nn.LeakyReLU):
+    """``nn.LeakyReLU`` whose slope is of its input's type, as eve_tpu's:
+    jax's weak-typed ``0.01 * x`` rounds the slope to bfloat16
+    (0.010009765625) for a bfloat16 ``x``. At float32 this is
+    ``nn.LeakyReLU``."""
+
+    def forward(self, x):
+        return F.leaky_relu(x, _rounded(self.negative_slope, x.dtype),
+                            self.inplace)
 
 
 def adaptive_max_pool(x, out_hw):
@@ -46,9 +126,42 @@ def adaptive_max_pool(x, out_hw):
     return F.adaptive_max_pool2d(x, tuple(out_hw))
 
 
+@functools.lru_cache(maxsize=None)
+def _resize_weights(n_in, n_out, device, dtype):
+    """(n_in, n_out) bilinear weights of ``jax.image.resize`` (triangle
+    kernel, no antialiasing): computed in float32 as jax computes them,
+    then cast to ``dtype``. Built outside inference mode, so that a cached
+    matrix may also serve a forward that records a graph."""
+    with torch.inference_mode(False):
+        inv = torch.tensor(1.0 / (n_out / n_in), dtype=torch.float32,
+                           device=device)
+        sample = (torch.arange(n_out, dtype=torch.float32, device=device)
+                  + 0.5) * inv - 0.5
+        grid = torch.arange(n_in, dtype=torch.float32, device=device)
+        w = torch.clamp(1.0 - (sample[None, :] - grid[:, None]).abs(),
+                        min=0.0)
+        w = w / w.sum(dim=0, keepdim=True)
+        inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+        return torch.where(inside[None, :], w, 0.0).to(dtype)
+
+
 def resize_bilinear(x, out_hw):
-    """Bilinear resize with ``align_corners=False`` and no antialiasing."""
-    if tuple(out_hw) == tuple(x.shape[-2:]):
+    """Bilinear resize with ``align_corners=False`` and no antialiasing.
+
+    At float32, ``F.interpolate``. At bfloat16, eve_tpu's
+    ``jax.image.resize`` as it computes: the weight matrices rounded to
+    bfloat16, a contraction over the width and then one over the height,
+    each rounded to bfloat16. ``F.interpolate`` rounds once from float32
+    weights and differs from eve_tpu by a bfloat16 ulp at ~30% of the
+    outputs (measured on the CPU, where the two contractions match eve_tpu
+    bitwise).
+    """
+    out_h, out_w = tuple(out_hw)
+    if (out_h, out_w) == tuple(x.shape[-2:]):
         return x
-    return F.interpolate(x, size=tuple(out_hw), mode='bilinear',
-                         align_corners=False, antialias=False)
+    if x.dtype == torch.float32:
+        return F.interpolate(x, size=(out_h, out_w), mode='bilinear',
+                             align_corners=False, antialias=False)
+    w_w = _resize_weights(x.shape[-1], out_w, x.device, x.dtype)
+    w_h = _resize_weights(x.shape[-2], out_h, x.device, x.dtype)
+    return torch.matmul(w_h.t(), torch.matmul(x, w_w))

@@ -14,7 +14,11 @@ up and optional skip concatenation; the head is a zero-initialised 1x1 conv
 and a sigmoid computed in float32.
 
 As in eve_tpu, ``encode`` and ``decode`` run batched over every frame and
-only ``bottleneck_step`` runs per timestep. Reference quirk: with a
+only ``bottleneck_step`` runs per timestep. The network computes in
+``compute_dtype`` (eve_tpu's casts): the initial heatmap is cast before its
+resize, the screen before the concatenation, the encoder's input once
+more, the conv-RNN states are created in it, and the head's output returns
+to float32 before the sigmoid. Reference quirk: with a
 tuple-state cell (CLSTM) and ``clstm_carry_only``, the cell's output is
 discarded and only its state is carried; the bottleneck passes its input on.
 """
@@ -24,7 +28,7 @@ import torch.nn as nn
 
 from eve_tpu_torch.models.cells import CONV_CELLS, zero_state
 from eve_tpu_torch.models.layers import (
-    InstanceNorm, adaptive_max_pool, resize_bilinear)
+    Conv2d, InstanceNorm, LeakyReLU, adaptive_max_pool, resize_bilinear)
 
 LEVEL_CHANNELS = (16, 32, 64, 128, 256)
 LEVEL_SHAPES = ((72, 128), (36, 64), (18, 32), (9, 16), (5, 8))
@@ -32,7 +36,7 @@ NUM_ENC_BLOCKS = (1, 2, 2, 2, 2)
 
 
 def _act(kind):
-    return nn.ReLU() if kind == 'relu' else nn.LeakyReLU(0.01)
+    return nn.ReLU() if kind == 'relu' else LeakyReLU(0.01)
 
 
 class PreactBlock(nn.Module):
@@ -42,14 +46,14 @@ class PreactBlock(nn.Module):
         super().__init__()
         self.layers = nn.Sequential(
             InstanceNorm(in_features, affine=True), _act(act),
-            nn.Conv2d(in_features, out_features, 3, 1, 1),
+            Conv2d(in_features, out_features, 3, 1, 1),
             InstanceNorm(out_features, affine=True), _act(act),
-            nn.Conv2d(out_features, out_features, 3, 1, 1))
+            Conv2d(out_features, out_features, 3, 1, 1))
         self.skip_layer = None
         if in_features != out_features:
             self.skip_layer = nn.Sequential(
                 InstanceNorm(in_features, affine=True), _act(act),
-                nn.Conv2d(in_features, out_features, 1, 1, 0))
+                Conv2d(in_features, out_features, 1, 1, 0))
 
     def forward(self, x):
         skip = x if self.skip_layer is None else self.skip_layer(x)
@@ -83,8 +87,10 @@ class _Level(nn.Module):
 class RefineNet(nn.Module):
     def __init__(self, load_screen_content=True, use_skip_connections=True,
                  use_rnn=True, rnn_type='CGRU', rnn_num_cells=1,
-                 num_features=64, clstm_carry_only=True):
+                 num_features=64, clstm_carry_only=True,
+                 compute_dtype=torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.load_screen_content = load_screen_content
         self.use_skip_connections = use_skip_connections
         self.use_rnn = use_rnn
@@ -93,8 +99,8 @@ class RefineNet(nn.Module):
         self.clstm_carry_only = clstm_carry_only
         in_c = 4 if load_screen_content else 1
         self.initial = nn.Sequential(
-            nn.Conv2d(in_c, 16, 3, 1, 1), InstanceNorm(16, affine=True),
-            nn.ReLU(), nn.Conv2d(16, 16, 3, 1, 1))
+            Conv2d(in_c, 16, 3, 1, 1), InstanceNorm(16, affine=True),
+            nn.ReLU(), Conv2d(16, 16, 3, 1, 1))
         cell_cls = CONV_CELLS[rnn_type]
         inner = _Bottleneck(cell_cls, num_features,
                             rnn_num_cells if use_rnn else 0)
@@ -102,8 +108,8 @@ class RefineNet(nn.Module):
             inner = _Level(k, num_features, use_skip_connections, inner)
         self.network = inner
         self.final = nn.Sequential(
-            nn.Conv2d(16, 16, 3, 1, 1), nn.LeakyReLU(0.01),
-            nn.Conv2d(16, 1, 1, 1, 0))
+            Conv2d(16, 16, 3, 1, 1), LeakyReLU(0.01),
+            Conv2d(16, 1, 1, 1, 0))
         nn.init.zeros_(self.final[2].weight)
         nn.init.zeros_(self.final[2].bias)
 
@@ -121,16 +127,18 @@ class RefineNet(nn.Module):
 
     def assemble_input(self, heatmap_initial, screen_frame=None,
                        screen_size=(128, 72)):
-        """(N, H, W) heatmap [+ (N, 3, h, w) screen] -> (N, C, h, w)."""
-        hm = resize_bilinear(heatmap_initial.unsqueeze(1),
-                             (screen_size[1], screen_size[0]))
+        """(N, H, W) heatmap [+ (N, 3, h, w) screen] -> (N, C, h, w), in
+        the compute type (both cast before the resize and concatenation)."""
+        hm = resize_bilinear(
+            heatmap_initial.to(self.compute_dtype).unsqueeze(1),
+            (screen_size[1], screen_size[0]))
         if self.load_screen_content:
-            return torch.cat([screen_frame.to(hm.dtype), hm], dim=1)
+            return torch.cat([screen_frame.to(self.compute_dtype), hm], dim=1)
         return hm
 
     def encode(self, x):
         """Stem + encoder pyramid: ``(bottleneck_input, skips outer->inner)``."""
-        x = self.initial(x)
+        x = self.initial(x.to(self.compute_dtype))
         skips = []
         for k, level in enumerate(self._levels()):
             for block in level.encoder_blocks:
@@ -165,10 +173,12 @@ class RefineNet(nn.Module):
         return torch.sigmoid(x.float())[:, 0]
 
     def init_state(self, batch_size, device=None):
-        """Zero conv-RNN states at the 5x8 bottleneck (empty without RNN)."""
+        """Zero conv-RNN states at the 5x8 bottleneck in the compute type
+        (empty without RNN)."""
         if not self.use_rnn:
             return ()
         return tuple(
             zero_state(CONV_CELLS[self.rnn_type], self.num_features,
-                       batch_size, hw=LEVEL_SHAPES[4], device=device)
+                       batch_size, hw=LEVEL_SHAPES[4], device=device,
+                       dtype=self.compute_dtype)
             for _ in self._cells())

@@ -6,16 +6,22 @@ as the reference EyeNet builds it, with its state_dict names (``conv1``,
 3x3/2 max-pool, four stages of two basic blocks, global average pool, fc.
 The norms are affine-free, so they hold no parameters.
 
+``compute_dtype`` is eve_tpu's: the input is cast to it, the stages run in
+it, the global average pool accumulates in float32 and rounds to it, and
+the pooled features return to float32 before ``fc``, so everything after
+the backbone runs float32.
+
 Only the reference stem is here; the patchify stems of the opt-in topology
 are a later slice.
 """
 
 import logging
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from eve_tpu_torch.models.layers import InstanceNorm
+from eve_tpu_torch.models.layers import Conv2d, InstanceNorm
 
 logger = logging.getLogger(__name__)
 
@@ -23,14 +29,14 @@ logger = logging.getLogger(__name__)
 class BasicBlock(nn.Module):
     def __init__(self, in_features, features, stride=1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_features, features, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(in_features, features, 3, stride, 1, bias=False)
         self.in1 = InstanceNorm(features)
-        self.conv2 = nn.Conv2d(features, features, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(features, features, 3, 1, 1, bias=False)
         self.in2 = InstanceNorm(features)
         self.downsample = None
         if stride != 1:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_features, features, 1, stride, 0, bias=False),
+                Conv2d(in_features, features, 1, stride, 0, bias=False),
                 InstanceNorm(features))
 
     def forward(self, x):
@@ -43,9 +49,10 @@ class BasicBlock(nn.Module):
 class ResNet18IN(nn.Module):
     """(N, 3, H, W) in [-1, 1] -> (N, num_classes)."""
 
-    def __init__(self, num_classes=128):
+    def __init__(self, num_classes=128, compute_dtype=torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.compute_dtype = compute_dtype
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.in1 = InstanceNorm(64)
         in_features = 64
         for stage, (features, stride) in enumerate(
@@ -63,7 +70,8 @@ class ResNet18IN(nn.Module):
             logger.warning('ResNet18IN input %s is below 33px: instance norm '
                            'at the 1x1 layer4 resolution erases the pixel '
                            'signal.', tuple(x.shape))
-        x = F.relu(self.in1(self.conv1(x)))
+        x = F.relu(self.in1(self.conv1(x.to(self.compute_dtype))))
         x = F.max_pool2d(x, 3, 2, 1)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        return self.fc(x.mean(dim=(-2, -1)))
+        pooled = x.mean(dim=(-2, -1), dtype=torch.float32).to(x.dtype)
+        return self.fc(pooled.float())

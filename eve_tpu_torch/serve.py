@@ -13,6 +13,11 @@ path), with the same contract:
   fails until the client closes the session and restarts the stream.
   Requests without a session get fresh state.
 - Queue bound, request timeouts, session TTL, drain/stop and stats.
+- The host keeps each session's states as float32 numpy arrays (numpy has
+  no bfloat16); a dispatch casts them on the device to the model's state
+  types (bfloat16 RefineNet states under the bfloat16 compute type), and
+  bfloat16 -> float32 -> bfloat16 is exact, so a chunked session still
+  equals one forward over the whole clip.
 
 PyTorch runs eagerly, so there is no per-signature compile cache;
 ``max_signatures`` still bounds the distinct input shapes a client can
@@ -82,7 +87,7 @@ class Session:
 
     def __init__(self, session_id, state):
         self.session_id = session_id
-        self.state = state  # host numpy tree, leading dim 1
+        self.state = state  # host float32 numpy tree, leading dim 1
         self.chunks_processed = 0
         self.last_used = time.monotonic()
 
@@ -151,8 +156,9 @@ class ServingEngine:
         self._broken_sessions = set()
         self._sessions: Dict[str, Session] = {}
         self._sessions_lock = threading.Lock()
-        self._zero_state = tree_map(
-            lambda t: t.numpy(), eve_lib.init_stream_state(spec, 1))
+        zero = eve_lib.init_stream_state(spec, 1)
+        self._state_dtypes = tree_map(lambda t: t.dtype, zero)
+        self._zero_state = tree_map(lambda t: t.float().numpy(), zero)
         self._signatures = set()  # owned by the batcher thread
         self._stats_lock = threading.Lock()
         self.stats = {
@@ -467,13 +473,15 @@ class ServingEngine:
                 eve_lib.batch_to_tensors(batch, device),
                 output_predictions=True,
                 initial_states=tree_map(
-                    lambda x: torch.from_numpy(x).to(device), states),
+                    lambda x, dtype: torch.from_numpy(x).to(device).to(dtype),
+                    states, self._state_dtypes),
                 return_states=True)
             states_out = out.pop('states')
             if self.served_outputs is not None:
                 out = {k: out[k] for k in self.served_outputs if k in out}
             host = {k: v.cpu().numpy() for k, v in out.items()}
-            new_states = tree_map(lambda t: t.cpu().numpy(), states_out)
+            new_states = tree_map(lambda t: t.float().cpu().numpy(),
+                                  states_out)
         return host, new_states
 
     def _dispatch(self, reqs: List[_Request]):

@@ -221,6 +221,15 @@ class Experiment:
         self.config = config
         self.spec = eve_lib.EveSpec.from_config(config)
         self.device = torch.device(device)
+        if config.tpu_num_devices > 1:
+            raise NotImplementedError(
+                'tpu_num_devices=%d: the port trains on one device; '
+                'multi-GPU training is a later slice (ROADMAP.md)'
+                % config.tpu_num_devices)
+        if config.tpu_num_devices == 0 and torch.cuda.device_count() > 1:
+            logger.warning('tpu_num_devices=0 (all devices): %d GPUs are '
+                           'visible, and the port trains on one (%s)',
+                           torch.cuda.device_count(), self.device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError('device %s: no CUDA card is visible (pass '
                                '--device cpu to train on the CPU)' % device)
@@ -611,7 +620,13 @@ def test_model_on_all(exp, test_data, current_step, log_key_prefix='test'):
 
 def do_final_full_test(exp, test_data):
     """Rebuild each validation set whole (``is_final_test=True``) and
-    evaluate it at ``full_test_batch_size``; returns the results."""
+    evaluate it at ``full_test_batch_size``; returns the results.
+
+    Logged at step ``exp.last_step + 1``, as eve_tpu logs it: after a
+    training loop that is the count of its steps; without one
+    (``skip_training``, or the resume of a finished run) it is one past
+    the loaded checkpoint's step.
+    """
     config = exp.config
     for tag, v in test_data.items():
         dataset = v['dataset_class'](
@@ -624,7 +639,7 @@ def do_final_full_test(exp, test_data):
         logger.info('> Full test on dataset %s: %d sequences', tag,
                     len(dataset))
     final_out, for_gsheet = test_model_on_all(
-        exp, test_data, exp.state.step, log_key_prefix='full_test')
+        exp, test_data, exp.last_step + 1, log_key_prefix='full_test')
     if for_gsheet is not None:
         exp.gsheet_logger.update_or_append_row(for_gsheet)
     return final_out

@@ -191,8 +191,15 @@ def test_config_keys_cover_eve_tpu():
 
 
 def test_later_slices_raise(specs, model):
-    with pytest.raises(NotImplementedError, match='bfloat16'):
-        teve.EVE(dataclasses.replace(specs[1], compute_dtype='bfloat16'))
+    """bfloat16 builds now (tests/test_torch_bf16.py runs it), and any
+    other compute_dtype runs float32, as eve_tpu's ``EveSpec.dtype``; the
+    opt-in topology still raises."""
+    bf16 = teve.EVE(dataclasses.replace(specs[1], compute_dtype='bfloat16'))
+    assert bf16.refine_net.compute_dtype == torch.bfloat16
+    assert bf16.eye_net.cnn_layers.compute_dtype == torch.bfloat16
+    f16 = teve.EVE(dataclasses.replace(specs[1], compute_dtype='float16'))
+    assert f16.refine_net.compute_dtype == torch.float32
+    assert f16.eye_net.cnn_layers.compute_dtype == torch.float32
     cfg = tconfig.Config()
     cfg.import_dict({'tpu_native_arch': True})
     with pytest.raises(NotImplementedError, match='tpu_native_arch'):
