@@ -101,7 +101,32 @@
    frames/s, batch walls and peak memory are printed beside the float32
    figures of the same run, and both kernels' launches are counted on
    every path.
-9. Prints the kernel table as one JSON line, the card, and last
+9. Serving-modes phase (slice F, after the serve phase): the serve
+   phase's model, weights and sessions at float32 and bfloat16, through
+   ``ServingEngine`` in each of its three ways: the default engine (host
+   stacking, float32 host states), ``device_resident=True`` (states and
+   batch assembly on the card) and device-resident with the inputs already
+   on the card (loopback). Each dispatch runs the same batch (a round of
+   the 8 sessions' chunk c, then 2 session-less requests); the resident
+   outputs and session states must equal the default engine's (bitwise,
+   or within the chunked-vs-whole tolerances with the difference printed),
+   each kernel launches once a dispatch, and each mode prints a dispatch's
+   wall time, device-busy time (profiler), host time (their difference)
+   and the bytes copied each way (the profiler trace's memcpy events).
+10. Native phase (slice G, last): ``configs/refine_net.json`` with
+   ``tpu_native_arch`` (the patchify EyeNet stem, RefineNetTPU, the
+   'heatmap' readout) at full width, at float32 and bfloat16: (a) served
+   in the three ways as in 9, chunks vs one T=30 forward and 4 clips card
+   vs CPU, a profiled B=8, T=10 forward, peak memory; (b) 4 training steps
+   at B = 8, T = 30 through the harness (render 3 and soft-argmax 1 a
+   step), the last checkpoint read back bitwise through
+   ``infer.model_setup``, a profiled step and (float32) one B = 2, T = 10
+   step card vs CPU; (d) one Codalab batch of 128 x 30; then (c)
+   ``configs/eye_net.json`` with the patchify stem (6 steps at B = 16 and
+   card vs CPU gradients) and one labelled forward each of the 'gated'
+   readout and the 'patchify8' stem. Every figure is printed beside the
+   reference topology's of the same run.
+11. Prints the kernel table as one JSON line, the card, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the run exits non-zero without the last line.
@@ -128,6 +153,7 @@ CONFIG = os.path.join(ROOT, 'configs', 'refine_net.json')
 TRAIN_OUT = os.path.join(ROOT, 'build', 'chip_smoke_train')
 EVAL_OUT = os.path.join(ROOT, 'build', 'chip_smoke_eval')
 CLI_OUT = os.path.join(ROOT, 'build', 'chip_smoke_cli')
+SERVE_OUT = os.path.join(ROOT, 'build', 'chip_smoke_serve')
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and float32
 # (non-tensor-core) operations/s.
@@ -257,6 +283,15 @@ BF16_CHUNK_RATIO, BF16_CPU_RATIO, BF16_CPU_CLIPS = 1.0, 1.0, 4
 # script prints that spread).
 BF16_GRAD_RATIO, BF16_LAYER_RATIO, BF16_LOSS_RTOL = 1.0, 1.25, 1e-2
 BF16_KEYS = ('PoG_px_initial', 'g_initial', 'PoG_px_final', 'g_final')
+# Device-resident serving (slice F): the serve phase's sessions in
+# ServingEngine's three ways, default (host stacking, float32 host states),
+# device_resident with numpy inputs, and device_resident with inputs
+# already on the card (loopback); LOOSE session-less requests after them.
+SERVING_MODES = ('default', 'resident', 'loopback')
+LOOSE = 2
+# The opt-in topology (slice G): NATIVE_STEPS training steps a run (the
+# last one checkpointed).
+NATIVE_STEPS = 4
 # Card vs CPU, the create_images maps of one streamed chunk: a heatmap lies
 # in [0, 1] and moves with the PoG it is drawn at (CPU_PX_ATOL of PoG, 3e-3
 # grid cells, moves a sigma-3 map by up to 7e-4) or with RefineNet's
@@ -946,7 +981,7 @@ def counted(hk, fn):
     return result, dict(hk.LAUNCHES)
 
 
-def compare_card_cpu(spec, card):
+def compare_card_cpu(spec, card, what_='train'):
     """One training step's full_loss and RefineNet gradients, card vs
     CPU, from the same seeded weights, batch and kappas (see
     CMP_GRAD_L2). The card takes the step CMP_CARD_STEPS times, and each
@@ -1007,19 +1042,19 @@ def compare_card_cpu(spec, card):
                'CPU under a %g weight perturbation' % CMP_PERTURB:
                worst([(cpu_perturbed, cpu)])}
     for what, (l2, elem) in results.items():
-        log('train: %s, B=%d T=%d: worst L2 error %.3g of its layer\'s '
+        log('%s: %s, B=%d T=%d: worst L2 error %.3g of its layer\'s '
             'gradient norm (%s), worst element error %.3g of its layer\'s '
-            'largest element (%s)' % (what, CMP_B, CMP_T, l2[0], l2[1],
+            'largest element (%s)' % (what_, what, CMP_B, CMP_T, l2[0], l2[1],
                                       elem[0], elem[1]))
     l2, elem = results['card vs CPU']
     if l2[0] > CMP_GRAD_L2 or elem[0] > CMP_GRAD_ELEM:
         raise AssertionError('card vs CPU gradients beyond the limits (L2 '
                              '%g, element %g): %s' % (
                                  CMP_GRAD_L2, CMP_GRAD_ELEM, results))
-    log('train: card vs CPU: full_loss %.7f on the CPU, %s on the card; all '
+    log('%s: card vs CPU: full_loss %.7f on the CPU, %s on the card; all '
         '%d RefineNet gradients of %d card steps within %g (L2) and %g '
         '(element) of their layer\'s' % (
-            loss[0], ', '.join('%.7f' % x for x in loss[2:]), len(cpu),
+            what_, loss[0], ', '.join('%.7f' % x for x in loss[2:]), len(cpu),
             CMP_CARD_STEPS, CMP_GRAD_L2, CMP_GRAD_ELEM))
     return l2[0], elem[0]
 
@@ -1462,7 +1497,7 @@ def echo_multi_source(hk, card):
     return {k: v // len(steps) for k, v in launches.items()}
 
 
-def eye_net_card_vs_cpu(spec_, card):
+def eye_net_card_vs_cpu(spec_, card, what_='eye-net'):
     """One B=EYE_CMP_B, T=EYE_CMP_T step of the trainable EyeNet, card vs
     CPU, from the same seeded weights, batch and kappas: full_loss, and
     every EyeNet gradient against the limits of EYE_GRAD_LIMITS. Also
@@ -1511,10 +1546,10 @@ def eye_net_card_vs_cpu(spec_, card):
                           name))
         worst[what] = (elem, l2)
         if what != 'CPU':
-            log('eye-net: %s vs CPU, B=%d T=%d: full_loss %.7f vs %.7f; '
+            log('%s: %s vs CPU, B=%d T=%d: full_loss %.7f vs %.7f; '
                 'worst element error %.3g of its tensor\'s largest element '
                 '(%s), worst L2 error %.3g of its norm (%s)' % (
-                    what, EYE_CMP_B, EYE_CMP_T, loss[what], loss['CPU'],
+                    what_, what, EYE_CMP_B, EYE_CMP_T, loss[what], loss['CPU'],
                     elem[0], elem[1], l2[0], l2[1]))
     for what, (elem_limit, l2_limit) in EYE_GRAD_LIMITS.items():
         np.testing.assert_allclose(loss[what], loss['CPU'], **CMP_LOSS_TOL,
@@ -1524,14 +1559,15 @@ def eye_net_card_vs_cpu(spec_, card):
             raise AssertionError('EyeNet %s vs CPU gradients beyond %g '
                                  '(element) and %g (L2): %s %s' % (
                                      what, elem_limit, l2_limit, elem, l2))
-    log('eye-net: card vs CPU: %d EyeNet gradients within %s' % (
-        len(cpu), ', '.join('%g (element) and %g (L2) %s' % (e, l, w)
+    log('%s: card vs CPU: %d EyeNet gradients within %s' % (
+        what_, len(cpu), ', '.join('%g (element) and %g (L2) %s' % (e, l, w)
                             for w, (e, l) in EYE_GRAD_LIMITS.items())))
 
 
-def eye_net_phase(hk, card, compute_dtype='float32'):
+def eye_net_phase(hk, card, compute_dtype='float32', native=False):
     """(c): configs/eye_net.json at its own width, EyeNet trainable, in
-    ``compute_dtype`` (the card-vs-CPU gradients at float32 only)."""
+    ``compute_dtype`` (the card-vs-CPU gradients at float32 only); with
+    ``native``, eve_tpu's opt-in topology (the patchify stem)."""
     from eve_tpu_torch.config import Config
     from eve_tpu_torch.data.loader import to_device
     from eve_tpu_torch.train import harness
@@ -1541,8 +1577,10 @@ def eye_net_phase(hk, card, compute_dtype='float32'):
                         'checkpoints_save_every_n_steps': 1000,
                         'test_every_n_steps': 1000,
                         'train_data_workers': 4,
-                        'tpu_compute_dtype': compute_dtype})
-    what = 'eye-net' if compute_dtype == 'float32' else 'bf16 eye-net'
+                        'tpu_compute_dtype': compute_dtype,
+                        'tpu_native_arch': native})
+    what = ('native ' if native else '') + (
+        'eye-net' if compute_dtype == 'float32' else 'bf16 eye-net')
     if (config.batch_size, config.max_sequence_len, config.eyes_size,
             config.refine_net_enabled, config.eye_net_frozen) != (
             EYE_B, TRAIN_T, [128, 128], False, False):
@@ -1550,9 +1588,9 @@ def eye_net_phase(hk, card, compute_dtype='float32'):
     train_data, test_data = harness.init_datasets(
         config, [spec('synthetic', 31, EYE_B * EYE_STEPS)],
         [spec('synthetic_val', 12, VAL_CLIPS)])
-    exp = harness.Experiment(config, os.path.join(TRAIN_OUT, 'eye_net_'
-                                                  + compute_dtype),
-                             device=card)
+    exp = harness.Experiment(config, os.path.join(
+        TRAIN_OUT, 'eye_net_' + compute_dtype + ('_native' if native
+                                                 else '')), device=card)
     losses, walls = {}, []
 
     def loop():
@@ -1587,10 +1625,12 @@ def eye_net_phase(hk, card, compute_dtype='float32'):
             ', '.join('%.1f' % (1e3 * w) for w in walls)))
     batch, _ = to_device(next(iter(train_data['synthetic']['dataloader'])),
                          card)
-    profile_train_step(exp.state, batch, card, what=what + ' profile')
+    busy = profile_train_step(exp.state, batch, card,
+                              what=what + ' profile')
     if compute_dtype == 'float32':
-        eye_net_card_vs_cpu(exp.spec, card)
-    return {'step_ms': 1e3 * step_s, 'peak': peak, 'launches': launches}
+        eye_net_card_vs_cpu(exp.spec, card, what)
+    return {'step_ms': 1e3 * step_s, 'peak': peak, 'launches': launches,
+            'busy': busy}
 
 
 def train_cli_phase(hk, card):
@@ -2115,13 +2155,15 @@ def bf16_training_phase(hk, card):
             'busy': busy}
 
 
-def bf16_codalab_phase(hk, card):
-    """(d): one Codalab batch of CODALAB_BATCH clips at bfloat16."""
+def codalab_batch_phase(hk, card, what, **overrides):
+    """One Codalab batch of CODALAB_BATCH clips under ``overrides`` of
+    configs/refine_net.json (the bf16 phase's (d), the native phase's
+    (d))."""
     from eve_tpu_torch import infer
     from eve_tpu_torch.data.loader import DataLoader, collate, to_device
     from eve_tpu_torch.models import eve as eve_lib
 
-    config = eval_config(tpu_compute_dtype='bfloat16')
+    config = eval_config(**overrides)
     spec_ = eve_lib.EveSpec.from_config(config)
     with torch.device('meta'):  # names and shapes only
         skeleton = eve_lib.EVE(spec_)
@@ -2142,23 +2184,23 @@ def bf16_codalab_phase(hk, card):
     outs, launches = counted(hk, batches)
     wall = time.perf_counter() - start
     peak = torch.cuda.max_memory_allocated(card)
-    log('bf16 eval: Codalab batch of %d clips of T=%d: %.3f s, %.1f frames/s '
+    log('%s: Codalab batch of %d clips of T=%d: %.3f s, %.1f frames/s '
         '(loading and copies included), peak device memory %.2f GiB; '
-        'kernel launches %s' % (CODALAB_BATCH, EVAL_T, wall,
+        'kernel launches %s' % (what, CODALAB_BATCH, EVAL_T, wall,
                                 CODALAB_BATCH * EVAL_T / wall,
                                 peak / 2 ** 30, launches))
     if len(outs) != 1 or launches != {'render_heatmaps': 1,
                                       'soft_argmax': 1}:
-        raise AssertionError('bf16 Codalab: %d batches, launches %s'
-                             % (len(outs), launches))
+        raise AssertionError('%s Codalab: %d batches, launches %s'
+                             % (what, len(outs), launches))
     if outs[0]['PoG_px_final'].shape != (CODALAB_BATCH, EVAL_T, 2):
-        raise AssertionError('bf16 Codalab: PoG_px_final %s'
-                             % (outs[0]['PoG_px_final'].shape,))
+        raise AssertionError('%s Codalab: PoG_px_final %s'
+                             % (what, outs[0]['PoG_px_final'].shape))
     check_finite(outs[0], ('PoG_px_initial', 'PoG_px_final', 'g_final',
-                           'left_pupil_size'), 'bf16 Codalab batch')
+                           'left_pupil_size'), what + ' Codalab batch')
     device_batch, _ = to_device(collate(clips.clips), card)
-    busy = profile_batch(model, device_batch, 'bf16 eval profile: Codalab '
-                         'batch B=%d T=%d' % (CODALAB_BATCH, EVAL_T),
+    busy = profile_batch(model, device_batch, '%s profile: Codalab batch '
+                         'B=%d T=%d' % (what, CODALAB_BATCH, EVAL_T),
                          steps=1, warmup=0)['busy']
     return {'launches': launches, 'batch_s': wall, 'peak': peak,
             'busy': busy}
@@ -2170,7 +2212,8 @@ def bf16_phase(hk, card, f32):
     serve = bf16_serve_phase(hk)
     train = bf16_training_phase(hk, card)
     eye = eye_net_phase(hk, card, compute_dtype='bfloat16')
-    codalab = bf16_codalab_phase(hk, card)
+    codalab = codalab_batch_phase(hk, card, 'bf16 eval',
+                                  tpu_compute_dtype='bfloat16')
     prof, prof32 = serve['profile'], f32['serve_profile']
     log('bf16 vs float32 (%s): serving forward B=%d T=%d %.2f ms wall vs '
         '%.2f, device busy %.2f ms vs %.2f, %.0f launches vs %.0f'
@@ -2194,7 +2237,481 @@ def bf16_phase(hk, card, f32):
             CODALAB_BATCH * EVAL_T / f32['eval']['batch_s'],
             codalab['peak'] / 2 ** 30, f32['eval']['peak'] / 2 ** 30))
     return {'serve': serve['launches'], 'train': train['launches'],
-            'eye_net': eye['launches'], 'codalab': codalab['launches']}
+            'eye_net': eye['launches'], 'codalab': codalab['launches'],
+            'figures': {'serve_profile': prof, 'train': train,
+                        'eye_net': eye, 'eval': codalab}}
+
+
+# ---------------------------------------------------------------------------
+# Serving modes (slice F)
+# ---------------------------------------------------------------------------
+
+def timed_engine(**kw):
+    """A ServingEngine that records each dispatch's wall time (the
+    dispatch ends with the served outputs on the host, so it holds the
+    device's work too)."""
+    from eve_tpu_torch.serve import ServingEngine
+
+    class TimedEngine(ServingEngine):
+        def __init__(self, **kwargs):
+            self.walls = []
+            super().__init__(**kwargs)
+
+        def _dispatch(self, reqs):
+            t0 = time.perf_counter()
+            try:
+                return super()._dispatch(reqs)
+            finally:
+                self.walls.append(time.perf_counter() - t0)
+
+    return TimedEngine(**kw)
+
+
+def settle(engine, dispatches, batches=0):
+    """Wait until ``dispatches`` dispatches since the engine's count
+    ``batches`` have finished and been timed (a dispatch resolves its
+    requests before it counts and times itself); returns the count."""
+    deadline = time.perf_counter() + 10.0
+    while time.perf_counter() < deadline and (
+            engine.get_stats()['batches'] - batches < dispatches or
+            len(engine.walls) < dispatches):
+        time.sleep(0.001)
+    return engine.get_stats()['batches'] - batches
+
+
+def session_requests(streams, loose):
+    """``{(session, chunk) or ('loose', i): request}``."""
+    requests = {(s, c): {k: v[c * T:(c + 1) * T] for k, v in st.items()}
+                for s, st in enumerate(streams) for c in range(CHUNKS)}
+    requests.update({('loose', i): clip for i, clip in enumerate(loose)})
+    return requests
+
+
+def serve_rounds(engine, requests):
+    """Chunk c of every session as round c, then the session-less requests
+    as one round, each submitted together and awaited, so that every
+    engine dispatches the same batches: ``(results by key, the sessions'
+    final states)``."""
+    sids = [engine.open_session() for _ in range(SESSIONS)]
+    rounds = [[(s, c) for s in range(SESSIONS)] for c in range(CHUNKS)]
+    rounds.append([key for key in requests if key[0] == 'loose'])
+    results = {}
+    for keys in rounds:
+        futures = {key: engine.submit(
+            requests[key], None if key[0] == 'loose' else sids[key[0]])
+            for key in keys}
+        results.update({k: f.result(timeout=600) for k, f in futures.items()})
+    states = [engine._sessions[sid].state for sid in sids]
+    for sid in sids:
+        engine.close_session(sid)
+    return results, states
+
+
+def state_leaves(tree):
+    """A session state's leaves as float64 numpy arrays."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in state_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in state_leaves(t)]
+    if isinstance(tree, torch.Tensor):
+        tree = tree.float().cpu().numpy()
+    return [np.asarray(tree, np.float64)]
+
+
+def profile_copies(fn, trace_path):
+    """Run ``fn`` twice under torch.profiler, recording the second run (a
+    first recorded run, started with the profiler, lost the memcpy events
+    of its first dispatch): ``(device-busy ms, {'HtoD': bytes, 'DtoH':
+    bytes})``, the bytes summed over the trace's memcpy events (None where
+    the trace carries no byte counts)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    busy = []
+
+    def recorded(prof):
+        busy.append(sum(e.self_device_time_total for e in prof.key_averages()
+                        if getattr(e, 'self_device_time_total', 0) > 0
+                        and e.self_cpu_time_total == 0) / 1e3)
+        prof.export_chrome_trace(trace_path)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=recorded) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    busy_ms, = busy
+    with open(trace_path) as f:
+        events = json.load(f).get('traceEvents', [])
+    os.remove(trace_path)
+    copies, counted_any = {'HtoD': 0, 'DtoH': 0}, False
+    for e in events:
+        nbytes = (e.get('args') or {}).get('bytes')
+        if e.get('cat') != 'gpu_memcpy' or nbytes is None:
+            continue
+        counted_any = True
+        for way in copies:
+            if way in e.get('name', ''):
+                copies[way] += int(nbytes)
+    return busy_ms, (copies if counted_any else None)
+
+
+def hold_modes(runs, what, ref=None):
+    """Every served output and session state of the device-resident modes
+    against the default engine's: bitwise, or else the largest difference
+    printed and held to the chunked-vs-whole tolerances (at float32
+    ``compare``'s; at bfloat16 the drift from the float32 default run
+    ``ref``)."""
+    base, base_states = runs['default']
+    for mode in SERVING_MODES[1:]:
+        results, states = runs[mode]
+        out_diff = max(float(np.abs(np.asarray(results[key][k], np.float64) -
+                                    np.asarray(v, np.float64)).max())
+                       for key, out in base.items() for k, v in out.items())
+        state_diff = max(float(np.abs(a - b).max()) for st, bst in
+                         zip(states, base_states)
+                         for a, b in zip(state_leaves(st),
+                                         state_leaves(bst)))
+        if out_diff == 0.0 and state_diff == 0.0:
+            log('%s: %s outputs and session states bitwise equal to the '
+                'default engine\'s (%d requests, %d sessions)'
+                % (what, mode, len(base), len(states)))
+            continue
+        log('%s: %s vs default engine: largest output difference %.4g, '
+            'largest session-state difference %.4g' % (what, mode, out_diff,
+                                                      state_diff))
+        keys = sorted(base, key=str)
+        if ref is None:
+            for key in keys:
+                compare(results[key], base[key], '%s %s request %s'
+                        % (what, mode, key), CHUNK_PX_ATOL)
+            for st, bst in zip(states, base_states):
+                for a, b in zip(state_leaves(st), state_leaves(bst)):
+                    if not np.allclose(a, b, rtol=1e-4, atol=OTHER_ATOL):
+                        raise AssertionError('%s %s: session state differs '
+                                             'by %g' % (what, mode,
+                                                        np.abs(a - b).max()))
+        else:
+            drift_ratios([results[k] for k in keys], [base[k] for k in keys],
+                         [ref[0][k] for k in keys], '%s: %s vs default'
+                         % (what, mode), BF16_CHUNK_RATIO)
+
+
+def serving_modes(hk, spec_, state_dict, what, ref=None):
+    """The serve phase's sessions (SESSIONS x CHUNKS chunks of T frames,
+    then LOOSE session-less requests) through the engine in each of
+    SERVING_MODES, counted and timed: launches once a dispatch, a
+    dispatch's wall (host clock), device-busy time (profiler) and bytes
+    copied each way, and every output and state of the resident modes
+    against the default engine's (``hold_modes``; ``ref`` the float32
+    default run for a bfloat16 one)."""
+    streams = client_clips(1, SESSIONS, CHUNKS * T)
+    host_requests = session_requests(streams, client_clips(2, LOOSE, T))
+    log('%s: a request holds %d bytes of inputs' % (what, sum(
+        v.nbytes for v in host_requests[(0, 0)].values())))
+    card_requests = {key: {k: torch.from_numpy(np.ascontiguousarray(v))
+                           .to('cuda') for k, v in clip.items()}
+                     for key, clip in host_requests.items()}
+    os.makedirs(SERVE_OUT, exist_ok=True)
+    runs, launches, timing = {}, {}, {}
+    for mode in SERVING_MODES:
+        requests = card_requests if mode == 'loopback' else host_requests
+        engine = timed_engine(spec=spec_, params=state_dict, device='cuda',
+                              max_batch=MAX_BATCH, max_delay_ms=20.0,
+                              device_resident=mode != 'default')
+        try:
+            # Warm-up: the same rounds (cuDNN's choices, the allocator).
+            serve_rounds(engine, requests)
+            settle(engine, CHUNKS + 1)
+            engine.walls.clear()
+            batches = engine.get_stats()['batches']
+            # --- this mode's serving path, counted ---
+            runs[mode], launches[mode] = counted(
+                hk, lambda: serve_rounds(engine, requests))
+            # --- end of the counted run ---
+            dispatches = settle(engine, CHUNKS + 1, batches)
+            walls = list(engine.walls)
+            busy_ms, copies = profile_copies(
+                lambda: serve_rounds(engine, requests),
+                os.path.join(SERVE_OUT, 'trace.json'))
+        finally:
+            engine.stop()
+        if dispatches != CHUNKS + 1 or any(
+                launches[mode][name] != dispatches
+                for name in ('render_heatmaps', 'soft_argmax')):
+            raise AssertionError('%s %s: %d dispatches, launches %s, want '
+                                 'one of each kernel a dispatch' % (
+                                     what, mode, dispatches, launches[mode]))
+        for key, out in runs[mode][0].items():
+            check_outputs(out, T, '%s %s request %s' % (what, mode, key))
+        wall_ms = 1e3 * float(np.mean(walls))
+        device_ms = busy_ms / dispatches
+        timing[mode] = {'wall_ms': wall_ms, 'device_ms': device_ms,
+                        'host_ms': wall_ms - device_ms,
+                        'h2d': copies and copies['HtoD'] / dispatches,
+                        'd2h': copies and copies['DtoH'] / dispatches}
+        log('%s %s: %d dispatches of B=%d T=%d, kernel launches %s; a '
+            'dispatch: %.2f ms wall, %.2f ms device busy, %.2f ms host '
+            '(wall - device), %s bytes host-to-device, %s device-to-host '
+            '(%s)' % (what, mode, dispatches, MAX_BATCH, T, launches[mode],
+                      wall_ms, device_ms, wall_ms - device_ms,
+                      'not measured' if copies is None
+                      else '%.0f' % timing[mode]['h2d'],
+                      'not measured' if copies is None
+                      else '%.0f' % timing[mode]['d2h'], card_line()))
+        log('%s %s: dispatch walls ms %s' % (what, mode, ', '.join(
+            '%.2f' % (1e3 * w) for w in walls)))
+    hold_modes(runs, what, ref and ref['runs']['default'])
+    return {'runs': runs, 'launches': launches, 'timing': timing,
+            'streams': streams}
+
+
+def resident_phase(hk):
+    """Slice F: the serve phase's model, weights and sessions in each
+    serving mode, at float32 and bfloat16."""
+    from eve_tpu_torch.models import eve as eve_lib
+    out = {}
+    for dtype in ('float32', 'bfloat16'):
+        config = eval_config(tpu_compute_dtype=dtype)
+        spec_ = eve_lib.EveSpec.from_config(config)
+        with torch.device('meta'):  # names and shapes only
+            skeleton = eve_lib.EVE(spec_)
+        torch.cuda.reset_peak_memory_stats()
+        out[dtype] = serving_modes(
+            hk, spec_, random_state_dict(skeleton),
+            'modes' if dtype == 'float32' else 'bf16 modes',
+            out.get('float32'))
+        out[dtype]['peak'] = torch.cuda.max_memory_allocated()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The opt-in topology (slice G)
+# ---------------------------------------------------------------------------
+
+def native_serve_phase(hk, compute_dtype, ref32=None):
+    """(a): the native model served in each mode; chunks vs one T=30
+    forward and 4 clips card vs CPU (float32: CHUNK_PX_ATOL and
+    CPU_PX_ATOL; bfloat16: within the drift from float32), a profiled
+    B=8, T=10 forward and the peak memory."""
+    import dataclasses
+
+    from eve_tpu_torch.models import eve as eve_lib
+    what = 'native serve' if compute_dtype == 'float32' else \
+        'native bf16 serve'
+    spec_ = eve_lib.EveSpec.from_config(eval_config(
+        tpu_native_arch=True, tpu_compute_dtype=compute_dtype))
+    with torch.device('meta'):  # names and shapes only
+        skeleton = eve_lib.EVE(spec_)
+    state_dict = random_state_dict(skeleton, seed=31)
+    torch.cuda.reset_peak_memory_stats()
+    modes = serving_modes(hk, spec_, state_dict, what, ref32)
+    peak = torch.cuda.max_memory_allocated()
+    results, streams = modes['runs']['default'][0], modes['streams']
+    model = eve_lib.build_model(spec_, state_dict, 'cuda')
+    cpu_model = eve_lib.build_model(spec_, state_dict, 'cpu')
+    chunked = [{k: np.concatenate([results[(s, c)][k] for c in range(CHUNKS)])
+                for k in results[(s, 0)]} for s in range(SESSIONS)]
+    whole = forward_clips(model, streams, 'cuda')
+    clips = [{k: v[:T] for k, v in st.items()}
+             for st in streams[:BF16_CPU_CLIPS]]
+    card, cpu = (forward_clips(model, clips, 'cuda'),
+                 forward_clips(cpu_model, clips, 'cpu'))
+    if compute_dtype == 'float32':
+        chunk_errs, cpu_errs = {}, {}
+        for s in range(SESSIONS):
+            for k, v in compare(chunked[s], whole[s], '%s: session %d chunks '
+                                'vs T=%d' % (what, s, CHUNKS * T),
+                                CHUNK_PX_ATOL).items():
+                chunk_errs[k] = max(chunk_errs.get(k, 0.0), v)
+        for i in range(len(clips)):
+            for k, v in compare(card[i], cpu[i], '%s: clip %d card vs CPU'
+                                % (what, i), CPU_PX_ATOL).items():
+                cpu_errs[k] = max(cpu_errs.get(k, 0.0), v)
+        log('%s: chunked sessions vs one T=%d forward, max abs err %s; %d '
+            'clips card vs CPU, max abs err %s' % (
+                what, CHUNKS * T, json.dumps(chunk_errs), len(clips),
+                json.dumps(cpu_errs)))
+    else:
+        model32 = eve_lib.build_model(
+            dataclasses.replace(spec_, compute_dtype='float32'), state_dict,
+            'cuda')
+        drift_ratios(chunked, whole, forward_clips(model32, streams, 'cuda'),
+                     '%s: chunked sessions vs one T=%d forward'
+                     % (what, CHUNKS * T), BF16_CHUNK_RATIO)
+        drift_ratios(card, cpu, forward_clips(model32, clips, 'cuda'),
+                     '%s: %d clips, card vs CPU' % (what, len(clips)),
+                     BF16_CPU_RATIO)
+        del model32
+    del cpu_model
+    profile = profile_forward(model, [{k: v[:T] for k, v in st.items()}
+                                      for st in streams],
+                              what=what + ' profile')
+    log('%s: peak device memory %.2f GiB while serving' % (what,
+                                                           peak / 2 ** 30))
+    return {'modes': modes, 'profile': profile, 'peak': peak}
+
+
+def native_training_phase(hk, card, compute_dtype):
+    """(b): NATIVE_STEPS configs/refine_net.json steps of the native
+    topology at B = TRAIN_B, T = TRAIN_T through the harness, the last one
+    checkpointed and read back bitwise through ``infer.model_setup``, a
+    profiled step and (float32) one B=CMP_B, T=CMP_T step card vs CPU."""
+    from eve_tpu_torch import infer
+    from eve_tpu_torch.data.loader import to_device
+    from eve_tpu_torch.train import harness
+
+    what = 'native train' if compute_dtype == 'float32' else \
+        'native bf16 train'
+    train_sets = [spec('synthetic_native', 15, TRAIN_B * NATIVE_STEPS)]
+    test_sets = [spec('synthetic_val', 12, VAL_CLIPS)]
+    overrides = {'tpu_native_arch': True, 'tpu_compute_dtype': compute_dtype}
+    config = train_config(checkpoints_save_every_n_steps=NATIVE_STEPS,
+                          test_every_n_steps=1000, **overrides)
+    torch.cuda.reset_peak_memory_stats(card)
+    (exp, losses, walls), launches = counted(hk, lambda: run_training(
+        config, train_sets, test_sets, card))
+    peak = torch.cuda.max_memory_allocated(card)
+    steps = len(losses)
+    log('%s: %d steps, full_loss %s; kernel launches %s' % (
+        what, steps, ', '.join('%.5f' % losses[k] for k in sorted(losses)),
+        launches))
+    if steps != NATIVE_STEPS or launches != {'render_heatmaps': 3 * steps,
+                                             'soft_argmax': steps}:
+        raise AssertionError('%s: %d steps, launches %s' % (what, steps,
+                                                            launches))
+    check_float32_state(exp.state, what)
+    step_s = float(np.median(walls[1:]))
+    log('%s: step wall %.1f ms (median of steps 2-%d, data wait included), '
+        '%.1f training frames/s, peak device memory %.2f GiB (%s); walls '
+        'ms %s' % (what, 1e3 * step_s, steps, TRAIN_B * TRAIN_T / step_s,
+                   peak / 2 ** 30, card_line(),
+                   ', '.join('%.1f' % (1e3 * w) for w in walls)))
+    loaded = infer.model_setup(train_config(resume_from=exp.output_dir,
+                                            **overrides), device=card)
+    trained = exp.state.model.state_dict()
+    if loaded.state_dict().keys() != trained.keys() or not all(
+            torch.equal(v, trained[k]) for k, v in
+            loaded.state_dict().items()):
+        raise AssertionError('%s: the checkpoint of step %d does not read '
+                             'back bitwise' % (what, steps))
+    log('%s: checkpoint %s read back bitwise through infer.model_setup '
+        '(%d tensors)' % (what, sorted(os.listdir(os.path.join(
+            exp.output_dir, 'checkpoints'))), len(trained)))
+    loader = harness.init_datasets(config, train_sets, test_sets)[0][
+        'synthetic_native']['dataloader']
+    batch, _ = to_device(next(iter(loader)), card)
+    busy = profile_train_step(exp.state, batch, card,
+                              what=what + ' profile')
+    if compute_dtype == 'float32':
+        compare_card_cpu(exp.spec, card, what)
+    return {'launches': launches, 'step_ms': 1e3 * step_s, 'peak': peak,
+            'busy': busy}
+
+
+def native_variants_phase(hk, card):
+    """(c): configs/eye_net.json with the patchify stem trained on the card,
+    and one labelled forward each of the 'gated' readout and the
+    'patchify8' stem: finite, of the right shapes, the gate's metrics
+    there, render 2 (estimate and labels) and soft-argmax 1."""
+    from eve_tpu_torch.models import eve as eve_lib
+    eye = eye_net_phase(hk, card, native=True)
+    clips = synthetic_clips(16, SESSIONS, T)
+    batch = eve_lib.batch_to_tensors(
+        {k: np.stack([c[k] for c in clips]) for k in clips[0]}, card)
+    launches = {}
+    for name, overrides in (('gated', {'tpu_native_refine_head': 'gated'}),
+                            ('patchify8', {'tpu_native_stem': 'patchify8'})):
+        spec_ = eve_lib.EveSpec.from_config(eval_config(
+            tpu_native_arch=True, **overrides))
+        with torch.device('meta'):  # names and shapes only
+            skeleton = eve_lib.EVE(spec_)
+        model = eve_lib.build_model(
+            spec_, random_state_dict(skeleton, seed=33), card)
+        with torch.inference_mode():
+            model(batch, output_predictions=True)  # warm-up
+            out, launches[name] = counted(
+                hk, lambda: model(batch, output_predictions=True))
+        out = {k: v.float().cpu().numpy() for k, v in out.items()}
+        check_finite(out, ('PoG_px_initial', 'PoG_px_final', 'g_final',
+                           'left_pupil_size', 'full_loss'),
+                     'native %s forward' % name)
+        if out['PoG_px_final'].shape != (SESSIONS, T, 2) or launches[name] \
+                != {'render_heatmaps': 2, 'soft_argmax': 1}:
+            raise AssertionError('native %s forward: PoG_px_final %s, '
+                                 'launches %s' % (name, out['PoG_px_final']
+                                                  .shape, launches[name]))
+        extra = ''
+        if name == 'gated':
+            check_finite(out, ('metric_euc_PoG_px_heatmap_final',
+                               'metric_mean_refine_gate'),
+                         'native gated forward')
+            extra = ', mean gate %.4f, heatmap-readout error %.1f px' % (
+                out['metric_mean_refine_gate'],
+                out['metric_euc_PoG_px_heatmap_final'])
+        log('native %s: labelled forward B=%d T=%d finite, PoG_px_final x '
+            'in [%.1f, %.1f]%s; kernel launches %s' % (
+                name, SESSIONS, T, out['PoG_px_final'][..., 0].min(),
+                out['PoG_px_final'][..., 0].max(), extra, launches[name]))
+    return {'eye_net': eye, 'launches': launches}
+
+
+def native_phase(hk, card, ref):
+    """Slice G at full width, each figure beside the reference topology's
+    of this run (``ref``: float32 and bfloat16 serving modes, forward
+    profiles, training steps and Codalab batches)."""
+    out = {}
+    for dtype in ('float32', 'bfloat16'):
+        tag = 'native' if dtype == 'float32' else 'native bf16'
+        serve = native_serve_phase(hk, dtype,
+                                   out.get('float32', {}).get('serve', {})
+                                   .get('modes'))
+        train = native_training_phase(hk, card, dtype)
+        codalab = codalab_batch_phase(hk, card, tag + ' eval',
+                                      tpu_native_arch=True,
+                                      tpu_compute_dtype=dtype)
+        out[dtype] = {'serve': serve, 'train': train, 'codalab': codalab}
+        r = ref[dtype]
+        prof, rprof = serve['profile'], r['serve_profile']
+        log('%s vs reference (%s): serving forward B=%d T=%d %.2f ms wall vs '
+            '%.2f, device busy %.2f ms vs %.2f (%.0f%% vs %.0f%%), %.0f '
+            'launches vs %.0f; serving peak %.2f GiB vs %.2f' % (
+                tag, card_line(), SESSIONS, T, prof['wall_ms'],
+                rprof['wall_ms'], prof['busy_ms'], rprof['busy_ms'],
+                100 * prof['busy'], 100 * rprof['busy'], prof['launches'],
+                rprof['launches'], serve['peak'] / 2 ** 30,
+                r['modes']['peak'] / 2 ** 30))
+        for mode in SERVING_MODES:
+            a, b = serve['modes']['timing'][mode], r['modes']['timing'][mode]
+            log('%s vs reference: %s dispatch %.2f ms wall vs %.2f, %.2f ms '
+                'device vs %.2f, %.2f ms host vs %.2f' % (
+                    tag, mode, a['wall_ms'], b['wall_ms'], a['device_ms'],
+                    b['device_ms'], a['host_ms'], b['host_ms']))
+        log('%s vs reference: configs/refine_net.json step B=%d T=%d %.1f ms '
+            'vs %.1f, %.1f training frames/s vs %.1f, busy %.0f%% vs %.0f%%, '
+            'peak %.2f GiB vs %.2f' % (
+                tag, TRAIN_B, TRAIN_T, train['step_ms'], r['train']['step_ms'],
+                1e3 * TRAIN_B * TRAIN_T / train['step_ms'],
+                1e3 * TRAIN_B * TRAIN_T / r['train']['step_ms'],
+                100 * train['busy'], 100 * r['train']['busy'],
+                train['peak'] / 2 ** 30, r['train']['peak'] / 2 ** 30))
+        log('%s vs reference: Codalab batch B=%d T=%d %.3f s vs %.3f, %.1f '
+            'frames/s vs %.1f, busy %.0f%% vs %.0f%%, peak %.2f GiB vs %.2f'
+            % (tag, CODALAB_BATCH, EVAL_T, codalab['batch_s'],
+               r['eval']['batch_s'], CODALAB_BATCH * EVAL_T /
+               codalab['batch_s'], CODALAB_BATCH * EVAL_T /
+               r['eval']['batch_s'], 100 * codalab['busy'],
+               100 * r['eval']['busy'], codalab['peak'] / 2 ** 30,
+               r['eval']['peak'] / 2 ** 30))
+    variants = native_variants_phase(hk, card)
+    eye, reye = variants['eye_net'], ref['float32']['eye_net']
+    log('native vs reference: configs/eye_net.json step B=%d T=%d %.1f ms vs '
+        '%.1f, busy %.0f%% vs %.0f%%, peak %.2f GiB vs %.2f' % (
+            EYE_B, TRAIN_T, eye['step_ms'], reye['step_ms'],
+            100 * eye['busy'], 100 * reye['busy'], eye['peak'] / 2 ** 30,
+            reye['peak'] / 2 ** 30))
+    out['variants'] = variants
+    return out
 
 
 def main():
@@ -2229,12 +2746,36 @@ def main():
     timings = kernel_timings(hk, SESSIONS * T)
     timings_eval = kernel_timings(hk, CODALAB_N)
     launches, serve_profile = serve_phase(hk)
+    resident = resident_phase(hk)
     train = training_phase(hk, torch.device('cuda', 0))
     cli = train_cli_phase(hk, torch.device('cuda', 0))
     evals = eval_phase(hk, torch.device('cuda', 0))
-    bf16 = bf16_phase(hk, torch.device('cuda', 0), {
-        'serve_profile': serve_profile, 'train': train,
-        'eye_net': cli['eye_net'], 'eval': evals})
+    f32 = {'serve_profile': serve_profile, 'train': train,
+           'eye_net': cli['eye_net'], 'eval': evals,
+           'modes': resident['float32']}
+    bf16 = bf16_phase(hk, torch.device('cuda', 0), f32)
+    native = native_phase(hk, torch.device('cuda', 0), {
+        'float32': f32,
+        'bfloat16': dict(bf16['figures'], modes=resident['bfloat16'])})
+    # Launch counts of the slice F and G paths, by JSON key.
+    new_paths = {}
+    for dtype, prefix in (('float32', ''), ('bfloat16', 'bf16_')):
+        for mode in SERVING_MODES[1:]:
+            new_paths[prefix + mode + '_serve_launches'] = \
+                resident[dtype]['launches'][mode]
+        nat = native[dtype]
+        new_paths['native_%sserve_launches' % prefix] = \
+            nat['serve']['modes']['launches']['default']
+        new_paths['native_%sresident_serve_launches' % prefix] = \
+            nat['serve']['modes']['launches']['resident']
+        new_paths['native_%strain_launches' % prefix] = \
+            nat['train']['launches']
+        new_paths['native_%scodalab_launches' % prefix] = \
+            nat['codalab']['launches']
+    new_paths['native_eye_net_train_launches'] = \
+        native['variants']['eye_net']['launches']
+    for name, counts in native['variants']['launches'].items():
+        new_paths['native_%s_forward_launches' % name] = counts
 
     source = 'eve_tpu_torch/csrc/heatmap_kernels.cu'
     replaces = {'render_heatmaps': 'eve_tpu/kernels/heatmap_kernels.py:38',
@@ -2258,6 +2799,7 @@ def main():
                      'bf16_codalab_launches': bf16['codalab'][name],
                      'max_abs_err': errs[name],
                      'n%d' % CODALAB_N: timings_eval[name]},
+                    **{k: v[name] for k, v in new_paths.items()},
                     **timings[name])
                for name in ('render_heatmaps', 'soft_argmax')]
     kernels[0]['s3'] = timings['render_heatmaps_s3']

@@ -12,7 +12,7 @@ effect, as in eve_tpu.
 Keys that ``eve_tpu`` knows but the port does not read yet fall in two
 groups (see ROADMAP.md):
 
-- ``DEFERRED_KEYS`` (export, the opt-in topology, multi-host): a JSON file
+- ``DEFERRED_KEYS`` (export, multi-host): a JSON file
   may set them and they are ignored, because nothing the port runs depends
   on them. ``tpu_on_device_preprocess`` and ``use_native_framepack`` stay
   here for good: the port's dataset reader always emits uint8 frames, which
@@ -43,7 +43,7 @@ logger = logging.getLogger(__name__)
 # slice that uses them lands (see ROADMAP.md). ``tpu_use_pallas`` stays
 # here for good: the port always launches its kernels on a CUDA tensor.
 DEFERRED_KEYS = frozenset((
-    'tpu_native_stem', 'export_batch_size',
+    'export_batch_size',
     'export_path', 'export_streaming', 'note', 'prefetch_buffer_size',
     'tpu_compile_cache_dir', 'tpu_coordinator_address', 'tpu_num_processes',
     'tpu_on_device_preprocess', 'tpu_process_id', 'tpu_use_pallas',
@@ -233,12 +233,17 @@ class Config:
     # heatmap kernels stay float32); any other value runs float32, as in
     # eve_tpu.
     tpu_compute_dtype = 'float32'
-    # The opt-in TPU-native topology is a later slice; the key is read so
-    # that a config which sets it fails loudly.
+    # eve_tpu's opt-in topology (models/refine_net_tpu.py and the patchify
+    # EyeNet stems): not weight-compatible with the reference topology or
+    # its released weights.
     tpu_native_arch = False
-    # RefineNet's readout: 'heatmap' (the reference's); 'gated' belongs to
-    # the opt-in topology. With RefineNet enabled, any other value, or
-    # 'gated' without tpu_native_arch, raises (eve_tpu's checks).
+    # The EyeNet stem of the opt-in topology: 'patchify' (8x8/4) or
+    # 'patchify8' (8x8/8). Ignored unless tpu_native_arch is set.
+    tpu_native_stem = 'patchify'
+    # RefineNet's readout: 'heatmap' (the reference's) or, with
+    # tpu_native_arch, 'gated' (initial + gate * (heatmap - initial) +
+    # delta). With RefineNet enabled, any other value, or 'gated' without
+    # tpu_native_arch, raises (eve_tpu's checks).
     tpu_native_refine_head = 'heatmap'
     # Reference quirk: a CLSTM bottleneck carries only its state.
     reference_compat_clstm_carry_only = True

@@ -38,8 +38,15 @@ are normalised in float32 and cast before they are stacked; ResNet-18 and
 RefineNet compute in bfloat16 and return float32 (see their modules);
 ``fc_common``, the dense cells and the heads run float32; the RefineNet
 states are bfloat16. The parameters, the geometry, the losses, both heatmap
-kernels and the soft-argmax stay float32. The opt-in TPU-native topology,
-the sequence mesh and rematerialization are later slices.
+kernels and the soft-argmax stay float32.
+
+``EveSpec.tpu_native_arch`` builds eve_tpu's opt-in topology: the patchify
+EyeNet stem (``tpu_native_stem``, see ``resnet``) and ``RefineNetTPU``
+(``refine_net_tpu``). Its ``tpu_native_refine_head`` 'gated' readout keeps
+the soft-argmax's reading as ``PoG_px_heatmap_final`` and returns
+``PoG_px_final = initial + gate * (heatmap - initial) + delta``, with the
+gate as ``refine_gate`` and two metrics that never enter ``full_loss``. The
+sequence mesh and rematerialization are later slices.
 """
 
 import contextlib
@@ -56,6 +63,7 @@ from eve_tpu_torch.models.cells import CONV_CELLS, DENSE_CELLS, zero_state
 from eve_tpu_torch.models.eye_net import EyeNet
 from eve_tpu_torch.models.layers import InstanceNorm
 from eve_tpu_torch.models.refine_net import LEVEL_SHAPES, RefineNet
+from eve_tpu_torch.models.refine_net_tpu import RefineNetTPU
 from eve_tpu_torch.ops import geometry as geo
 from eve_tpu_torch.ops import heatmap as hm_ops
 
@@ -63,7 +71,7 @@ from eve_tpu_torch.ops import heatmap as hm_ops
 @dataclasses.dataclass(frozen=True)
 class EveSpec:
     """Static model specification: the fields of eve_tpu's ``EveSpec`` that
-    the reference topology reads."""
+    the port reads."""
     # EyeNet
     eye_net_use_rnn: bool = True
     eye_net_rnn_type: str = 'GRU'
@@ -102,6 +110,13 @@ class EveSpec:
     # Compute type of the networks: 'bfloat16', or float32 for any other
     # value (eve_tpu's rule)
     compute_dtype: str = 'float32'
+    # eve_tpu's opt-in topology (not weight-compatible with the reference):
+    # the EyeNet stem 'patchify' (8x8/4) or 'patchify8' (8x8/8), and
+    # RefineNetTPU with the 'heatmap' or 'gated' readout. The stem and the
+    # readout are ignored without tpu_native_arch.
+    tpu_native_arch: bool = False
+    tpu_native_stem: str = 'patchify'
+    tpu_native_refine_head: str = 'heatmap'
 
     @property
     def dtype(self):
@@ -109,27 +124,30 @@ class EveSpec:
         return (torch.bfloat16 if self.compute_dtype == 'bfloat16'
                 else torch.float32)
 
-    @classmethod
-    def from_config(cls, config):
-        """Build from an ``eve_tpu_torch.config.Config``.
+    @property
+    def gated(self):
+        """Whether RefineNet has the residual 'gated' readout."""
+        return (self.refine_net_enabled and self.tpu_native_arch and
+                self.tpu_native_refine_head == 'gated')
 
-        With RefineNet enabled, ``tpu_native_refine_head`` must be
-        'heatmap' (eve_tpu raises the same ``ValueError``s when it builds
-        the RefineNet; 'gated' needs the opt-in topology).
-        """
-        if config.tpu_native_arch:
-            raise NotImplementedError(
-                'tpu_native_arch (the opt-in topology) is a later slice of '
-                'the port; see ROADMAP.md')
-        head = config.tpu_native_refine_head
-        if config.refine_net_enabled and head != 'heatmap':
-            if head != 'gated':
-                raise ValueError(
-                    "Unknown tpu_native_refine_head %r (expected 'heatmap' "
-                    "or 'gated')" % (head,))
+    def __post_init__(self):
+        """eve_tpu's ``ValueError``s for ``tpu_native_refine_head``, which
+        it raises when it builds the RefineNet."""
+        head = self.tpu_native_refine_head
+        if not self.refine_net_enabled or head == 'heatmap':
+            return
+        if head != 'gated':
+            raise ValueError(
+                "Unknown tpu_native_refine_head %r (expected 'heatmap' or "
+                "'gated')" % (head,))
+        if not self.tpu_native_arch:
             raise ValueError(
                 "tpu_native_refine_head='gated' requires tpu_native_arch "
                 "(the reference topology keeps the reference readout)")
+
+    @classmethod
+    def from_config(cls, config):
+        """Build from an ``eve_tpu_torch.config.Config``."""
         return cls(
             eye_net_use_rnn=config.eye_net_use_rnn,
             eye_net_rnn_type=config.eye_net_rnn_type,
@@ -170,6 +188,9 @@ class EveSpec:
             loss_coeff_heatmap_ce_final=config.loss_coeff_heatmap_ce_final,
             loss_coeff_heatmap_mse_final=config.loss_coeff_heatmap_mse_final,
             compute_dtype=config.tpu_compute_dtype,
+            tpu_native_arch=config.tpu_native_arch,
+            tpu_native_stem=config.tpu_native_stem,
+            tpu_native_refine_head=config.tpu_native_refine_head,
         )
 
 
@@ -229,10 +250,17 @@ class EVE(nn.Module):
             rnn_type=spec.eye_net_rnn_type,
             rnn_num_cells=spec.eye_net_rnn_num_cells,
             use_head_pose_input=spec.eye_net_use_head_pose_input,
-            compute_dtype=spec.dtype)
+            compute_dtype=spec.dtype,
+            stem=(spec.tpu_native_stem if spec.tpu_native_arch
+                  else 'reference'))
         self.refine_net = None
         if spec.refine_net_enabled:
-            self.refine_net = RefineNet(
+            if spec.tpu_native_arch:
+                cls, kw = RefineNetTPU, {
+                    'readout': spec.tpu_native_refine_head}
+            else:
+                cls, kw = RefineNet, {}
+            self.refine_net = cls(
                 load_screen_content=spec.load_screen_content,
                 use_skip_connections=spec.refine_net_use_skip_connections,
                 use_rnn=spec.refine_net_use_rnn,
@@ -240,7 +268,7 @@ class EVE(nn.Module):
                 rnn_num_cells=spec.refine_net_rnn_num_cells,
                 num_features=spec.refine_net_num_features,
                 clstm_carry_only=spec.clstm_carry_only,
-                compute_dtype=spec.dtype)
+                compute_dtype=spec.dtype, **kw)
         if spec.eye_net_frozen:
             # As the reference freezes it: no gradient, no optimizer state.
             self.eye_net.requires_grad_(False)
@@ -337,12 +365,28 @@ class EVE(nn.Module):
             else:
                 bottleneck_out = bottleneck_in
                 final_states['refine'] = ()
-            heatmap_final = refine_net.decode(bottleneck_out, skips)
+            if spec.gated:
+                heatmap_final, gate, delta = refine_net.decode_readout(
+                    bottleneck_out, skips)
+            else:
+                heatmap_final = refine_net.decode(bottleneck_out, skips)
             interm['heatmap_final'] = heatmap_final.reshape(B, T, h, w)
             interm['PoG_px_final'] = hm_ops.soft_argmax_fast(
                 interm['heatmap_final'],
                 heatmap_size=spec.gaze_heatmap_size,
                 actual_screen_size=spec.actual_screen_size)
+            if spec.gated:
+                # The residual readout: the soft-argmax proposes a step
+                # from the (in training, augmented) initial estimate, the
+                # gate says how far to take it and delta adds a sub-cell
+                # correction.
+                initial = interm['PoG_px_initial']
+                heatmap_pog = interm['PoG_px_final']
+                gate = gate.reshape(B, T, 2)
+                interm['PoG_px_heatmap_final'] = heatmap_pog
+                interm['PoG_px_final'] = (initial + gate * (
+                    heatmap_pog - initial) + delta.reshape(B, T, 2))
+                interm['refine_gate'] = gate
             cm_per_px = 0.1 * full['millimeters_per_pixel']
             interm['PoG_cm_final'] = interm['PoG_px_final'] * cm_per_px
             interm['g_final'] = geo.calculate_combined_gaze_direction(
@@ -444,7 +488,11 @@ def init_weights(model, generator):
     - linear layers: U(+-1/sqrt(fan_in)) for weight and bias;
     - dense RNN cells: U(+-1/sqrt(H)) for every parameter;
     - affine instance norms: ones and zeros;
-    - EyeNet's ``fc_to_gaze.2`` and RefineNet's ``final.2``: zero.
+    - EyeNet's ``fc_to_gaze.2`` and RefineNet's ``final.2``: zero;
+    - RefineNetTPU's ``final_2`` and ``gate_fc2``: zero; ``gate_fc1`` is a
+      flax ``nn.Dense`` in eve_tpu, so lecun-normal (a normal truncated at
+      two standard deviations, scaled to variance 1 / fan_in) and a zero
+      bias.
     """
     def fill(p, sample):
         with torch.no_grad():
@@ -481,6 +529,18 @@ def init_weights(model, generator):
         elif isinstance(module, RefineNet):
             fill(module.final[2].weight, zeros)
             fill(module.final[2].bias, zeros)
+        elif isinstance(module, RefineNetTPU):
+            for zero in [module.final_2] + (
+                    [module.gate_fc2] if module.readout == 'gated' else []):
+                fill(zero.weight, zeros)
+                fill(zero.bias, zeros)
+            if module.readout == 'gated':
+                fc1 = module.gate_fc1
+                # flax's truncated_normal stddev correction for [-2, 2].
+                std = math.sqrt(1.0 / fc1.in_features) / .87962566103423978
+                fill(fc1.weight, lambda t: nn.init.trunc_normal_(
+                    t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator))
+                fill(fc1.bias, zeros)
     return model
 
 
@@ -780,6 +840,16 @@ def calculate_losses_and_metrics(full, interm, output, do_aug=False):
         if pred_key in interm and 'g' in full:
             output['metric_ang_' + pred_key] = losses_lib.angular_loss(
                 interm[pred_key], full['g'], full['g_validity'])
+
+    # The gated readout's diagnostics, metrics only: the heatmap's own
+    # reading and the mean gate.
+    if 'PoG_px_heatmap_final' in interm and 'PoG_px_tobii' in full:
+        output['metric_euc_PoG_px_heatmap_final'] = \
+            losses_lib.euclidean_loss(interm['PoG_px_heatmap_final'],
+                                      full['PoG_px_tobii'],
+                                      full['PoG_px_tobii_validity'])
+    if 'refine_gate' in interm:
+        output['metric_mean_refine_gate'] = interm['refine_gate'].mean()
 
 
 def _full_loss(spec, output, device):

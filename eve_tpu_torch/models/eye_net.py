@@ -11,8 +11,8 @@ The work is split as in eve_tpu: ``features`` (backbone + ``fc_common``) is
 recurrence-free and runs batched over every frame of both eyes; only
 ``recurrent`` runs per timestep; ``heads`` runs batched afterwards.
 
-``compute_dtype`` is the backbone's (see ``resnet``); ``fc_common``, the
-cells and the heads run float32, as in eve_tpu.
+``compute_dtype`` and ``stem`` are the backbone's (see ``resnet``);
+``fc_common``, the cells and the heads run float32, as in eve_tpu.
 """
 
 import math
@@ -30,7 +30,7 @@ HALF_PI = 0.5 * math.pi
 class EyeNet(nn.Module):
     def __init__(self, num_features=128, use_rnn=True, rnn_type='GRU',
                  rnn_num_cells=1, use_head_pose_input=True,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, stem='reference'):
         super().__init__()
         nf = num_features
         self.num_features = nf
@@ -38,7 +38,7 @@ class EyeNet(nn.Module):
         self.rnn_type = rnn_type
         self.use_head_pose_input = use_head_pose_input
         self.cnn_layers = ResNet18IN(num_classes=nf,
-                                     compute_dtype=compute_dtype)
+                                     compute_dtype=compute_dtype, stem=stem)
         self.fc_common = nn.Sequential(
             nn.Linear(nf + (2 if use_head_pose_input else 0), nf),
             nn.SELU(),

@@ -1,5 +1,5 @@
 """Shared layers, NCHW: convolution, instance norm, adaptive max-pool,
-bilinear resize.
+bilinear resize, depth-to-space.
 
 The counterpart of ``eve_tpu/models/layers.py``. eve_tpu emulates torch's
 own semantics (adaptive max-pool windows, bilinear resize with
@@ -165,3 +165,19 @@ def resize_bilinear(x, out_hw):
     w_w = _resize_weights(x.shape[-1], out_w, x.device, x.dtype)
     w_h = _resize_weights(x.shape[-2], out_h, x.device, x.dtype)
     return torch.matmul(w_h.t(), torch.matmul(x, w_w))
+
+
+def depth_to_space(x, block):
+    """Sub-pixel reshape (N, b*b*C, H, W) -> (N, C, H*b, W*b), reading the
+    channel axis as eve_tpu's (bh, bw, C): channel ``(i*b + j)*C + c``
+    paints pixel (i, j) of its cell's b x b tile in output channel c.
+    ``F.pixel_shuffle`` reads it as (C, bh, bw); the two agree only at
+    C = 1."""
+    n, c, h, w = x.shape
+    if c % (block * block):
+        raise ValueError('%d channels do not split into %dx%d tiles'
+                         % (c, block, block))
+    c_out = c // (block * block)
+    x = x.reshape(n, block, block, c_out, h, w)
+    x = x.permute(0, 3, 4, 1, 5, 2)  # (N, C, H, bh, W, bw)
+    return x.reshape(n, c_out, h * block, w * block)

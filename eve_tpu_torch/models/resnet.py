@@ -11,8 +11,12 @@ it, the global average pool accumulates in float32 and rounds to it, and
 the pooled features return to float32 before ``fc``, so everything after
 the backbone runs float32.
 
-Only the reference stem is here; the patchify stems of the opt-in topology
-are a later slice.
+``stem`` selects eve_tpu's stem: 'reference' (above), or one of the opt-in
+topology's patch-embedding stems in its place, 'patchify' (an 8x8 stride-4
+convolution, padding 2, straight to layer1's resolution) or 'patchify8'
+(8x8, stride 8, no padding), each without bias and followed by a non-affine
+instance norm and a ReLU (``stem_conv``, eve_tpu's name). The two have the
+same parameters; only the stride differs.
 """
 
 import logging
@@ -24,6 +28,9 @@ import torch.nn.functional as F
 from eve_tpu_torch.models.layers import Conv2d, InstanceNorm
 
 logger = logging.getLogger(__name__)
+
+# The opt-in topology's patch-embedding stems: their strides.
+STEM_STRIDES = {'patchify': 4, 'patchify8': 8}
 
 
 class BasicBlock(nn.Module):
@@ -49,10 +56,22 @@ class BasicBlock(nn.Module):
 class ResNet18IN(nn.Module):
     """(N, 3, H, W) in [-1, 1] -> (N, num_classes)."""
 
-    def __init__(self, num_classes=128, compute_dtype=torch.float32):
+    def __init__(self, num_classes=128, compute_dtype=torch.float32,
+                 stem='reference'):
         super().__init__()
         self.compute_dtype = compute_dtype
-        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.stem = stem
+        if stem == 'reference':
+            self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
+        elif stem in STEM_STRIDES:
+            stride = STEM_STRIDES[stem]
+            self.stem_conv = Conv2d(3, 64, 8, stride, (8 - stride) // 2,
+                                    bias=False)
+        else:
+            # A typo'd stem must not silently train the reference stem.
+            raise ValueError(
+                "Unknown ResNet18IN stem %r (expected 'reference', "
+                "'patchify' or 'patchify8')" % (stem,))
         self.in1 = InstanceNorm(64)
         in_features = 64
         for stage, (features, stride) in enumerate(
@@ -64,14 +83,20 @@ class ResNet18IN(nn.Module):
         self.fc = nn.Linear(512, num_classes)
 
     def forward(self, x):
-        if min(x.shape[-2:]) < 33:
-            # Below 33 px, layer4 runs at 1x1, where instance norm maps
-            # every activation to 0 and the output ignores the input.
-            logger.warning('ResNet18IN input %s is below 33px: instance norm '
-                           'at the 1x1 layer4 resolution erases the pixel '
-                           'signal.', tuple(x.shape))
-        x = F.relu(self.in1(self.conv1(x.to(self.compute_dtype))))
-        x = F.max_pool2d(x, 3, 2, 1)
+        # Below this size layer4 runs at 1x1, where instance norm maps
+        # every activation to 0 and the output ignores the input.
+        min_px = 65 if self.stem == 'patchify8' else 33
+        if min(x.shape[-2:]) < min_px:
+            logger.warning('ResNet18IN input %s is below %dpx (stem=%s): '
+                           'instance norm at the 1x1 layer4 resolution '
+                           'erases the pixel signal.', tuple(x.shape),
+                           min_px, self.stem)
+        x = x.to(self.compute_dtype)
+        if self.stem == 'reference':
+            x = F.relu(self.in1(self.conv1(x)))
+            x = F.max_pool2d(x, 3, 2, 1)
+        else:
+            x = F.relu(self.in1(self.stem_conv(x)))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         pooled = x.mean(dim=(-2, -1), dtype=torch.float32).to(x.dtype)
         return self.fc(pooled.float())

@@ -1,7 +1,7 @@
 """Serving engine: micro-batched, stateful EVE inference on one device.
 
-The counterpart of ``eve_tpu/serve.py`` (the spec+params, host-stacked
-path), with the same contract:
+The counterpart of ``eve_tpu/serve.py`` (the spec+params path, host-stacked
+or device-resident), with the same contract:
 
 - A background batcher thread gathers requests from a bounded queue for up
   to ``max_delay_ms`` (or until ``max_batch`` are pending) and runs them as
@@ -13,16 +13,26 @@ path), with the same contract:
   fails until the client closes the session and restarts the stream.
   Requests without a session get fresh state.
 - Queue bound, request timeouts, session TTL, drain/stop and stats.
-- The host keeps each session's states as float32 numpy arrays (numpy has
-  no bfloat16); a dispatch casts them on the device to the model's state
-  types (bfloat16 RefineNet states under the bfloat16 compute type), and
-  bfloat16 -> float32 -> bfloat16 is exact, so a chunked session still
-  equals one forward over the whole clip.
+- By default the host keeps each session's states as float32 numpy arrays
+  (numpy has no bfloat16); a dispatch stacks the inputs and states on the
+  host, copies them to the device and casts the states to the model's
+  state types (bfloat16 RefineNet states under the bfloat16 compute type),
+  and copies every output and state back. bfloat16 -> float32 -> bfloat16
+  is exact, so a chunked session still equals one forward over the whole
+  clip.
+- ``device_resident=True`` keeps each session's states on the device in
+  the model's own types and assembles the batch there: inputs that are
+  already tensors pass through ``submit`` untouched (numpy inputs are
+  copied to the device slot by slot), the slots are stacked with
+  ``torch.stack`` and the states joined with ``torch.cat``, each slot's new
+  state is sliced and cloned (so one session's state never pins the whole
+  batch), and only the served outputs are copied back. Both modes run the
+  same batch through the same forward, so their results are equal.
 
 PyTorch runs eagerly, so there is no per-signature compile cache;
 ``max_signatures`` still bounds the distinct input shapes a client can
-send. AOT artifacts, data-parallel meshes and device-resident session
-state are later slices of the port.
+send. AOT artifacts and data-parallel meshes are later slices of the
+port.
 
 The HTTP front end (``make_http_server``) is stdlib-only with numpy
 ``.npz`` bodies, the same protocol as eve_tpu's.
@@ -87,7 +97,10 @@ class Session:
 
     def __init__(self, session_id, state):
         self.session_id = session_id
-        self.state = state  # host float32 numpy tree, leading dim 1
+        # Leading dim 1: a host float32 numpy tree, or with
+        # device_resident a tree of tensors on the device, never written
+        # in place.
+        self.state = state
         self.chunks_processed = 0
         self.last_used = time.monotonic()
 
@@ -112,10 +125,14 @@ class ServingEngine:
         waited longer in the queue. ``session_ttl_s``: sessions idle longer
         are evicted on the next ``open_session`` (0 disables), floored at
         2x ``request_timeout_s`` so a session with a queued chunk never
-        ages out.
+        ages out. ``device_resident``: session states and batch assembly on
+        the device (see the module docstring).
         """
-        for name, value in (('artifact', artifact), ('mesh', mesh),
-                            ('device_resident', device_resident or None)):
+        if device_resident and artifact is not None:
+            raise ValueError(
+                'device_resident serving needs the spec+params path '
+                '(AOT artifacts fix their own input layout)')
+        for name, value in (('artifact', artifact), ('mesh', mesh)):
             if value is not None:
                 raise NotImplementedError(
                     '%s= serving is a later slice of the port; see '
@@ -131,6 +148,7 @@ class ServingEngine:
         torch.backends.cuda.matmul.allow_tf32 = False
         self.spec = spec
         self.device = torch.device(device)
+        self.device_resident = bool(device_resident)
         self._model = eve_lib.build_model(
             spec, {k: torch.as_tensor(v) for k, v in params.items()},
             self.device)
@@ -156,9 +174,14 @@ class ServingEngine:
         self._broken_sessions = set()
         self._sessions: Dict[str, Session] = {}
         self._sessions_lock = threading.Lock()
-        zero = eve_lib.init_stream_state(spec, 1)
-        self._state_dtypes = tree_map(lambda t: t.dtype, zero)
-        self._zero_state = tree_map(lambda t: t.float().numpy(), zero)
+        if self.device_resident:
+            # Made once, on the device; every session starts from it.
+            self._zero_state = eve_lib.init_stream_state(spec, 1,
+                                                         self.device)
+        else:
+            zero = eve_lib.init_stream_state(spec, 1)
+            self._state_dtypes = tree_map(lambda t: t.dtype, zero)
+            self._zero_state = tree_map(lambda t: t.float().numpy(), zero)
         self._signatures = set()  # owned by the batcher thread
         self._stats_lock = threading.Lock()
         self.stats = {
@@ -209,7 +232,8 @@ class ServingEngine:
                     'session limit reached (%d); close unused sessions'
                     % self.max_sessions)
             self._sessions[session_id] = Session(
-                session_id, tree_map(np.copy, self._zero_state))
+                session_id, self._zero_state if self.device_resident
+                else tree_map(np.copy, self._zero_state))
         if evicted:
             self._stat_inc('sessions_evicted', evicted)
             logger.info('evicted %d idle session(s) past the %.0fs TTL',
@@ -247,7 +271,9 @@ class ServingEngine:
 
         The future resolves to the served output dict with per-sample arrays
         (batch dim stripped). With a ``session_id`` the recurrent state is
-        carried from this session's previous chunk.
+        carried from this session's previous chunk. A ``torch.Tensor``
+        passes through untouched (with ``device_resident`` it is stacked
+        where it lies); anything else becomes a numpy array.
         """
         if self._draining.is_set():
             self._stat_inc('rejected_draining')
@@ -263,11 +289,15 @@ class ServingEngine:
                     session.last_used = time.monotonic()
             if session is None:
                 raise UnknownSessionError('unknown session: %s' % session_id)
-        req = _Request(inputs={k: np.asarray(v) for k, v in inputs.items()},
-                       session_id=session_id, session=session,
-                       enqueued_at=time.perf_counter())
+        req = _Request(
+            inputs={k: v if isinstance(v, torch.Tensor) else np.asarray(v)
+                    for k, v in inputs.items()},
+            session_id=session_id, session=session,
+            enqueued_at=time.perf_counter())
+        # Tensors and numpy arrays of one shape and type share a signature.
         req.signature = tuple(sorted(
-            (k, v.shape, str(v.dtype)) for k, v in req.inputs.items()))
+            (k, tuple(v.shape), str(v.dtype).replace('torch.', ''))
+            for k, v in req.inputs.items()))
         with self._stats_lock:
             self._inflight += 1
         try:
@@ -465,24 +495,54 @@ class ServingEngine:
                     % self.max_signatures)
             self._signatures.add(signature)
 
-    def _run(self, batch, states):
-        """One padded forward; returns (served outputs, new states) on host."""
+    def _forward(self, batch, states):
+        """One padded forward of device tensors: ``(served outputs on the
+        host, new states on the device)``."""
+        out = self._model(batch, output_predictions=True,
+                          initial_states=states, return_states=True)
+        states_out = out.pop('states')
+        if self.served_outputs is not None:
+            out = {k: out[k] for k in self.served_outputs if k in out}
+        return {k: v.cpu().numpy() for k, v in out.items()}, states_out
+
+    def _run_host(self, reqs, slot_states, pad):
+        """The default mode: stack on the host, copy in, copy every output
+        and state out. Returns ``(host outputs, slot -> new state)``."""
+        batch = {}
+        for k in reqs[0].inputs:
+            stacked = np.stack([_host_array(r.inputs[k]) for r in reqs])
+            if pad:
+                stacked = np.concatenate(
+                    [stacked, np.repeat(stacked[-1:], pad, axis=0)])
+            batch[k] = stacked
+        states = tree_map(lambda *xs: np.concatenate(xs, axis=0),
+                          *slot_states)
         device = self.device
         with torch.inference_mode():
-            out = self._model(
+            host, states_out = self._forward(
                 eve_lib.batch_to_tensors(batch, device),
-                output_predictions=True,
-                initial_states=tree_map(
-                    lambda x, dtype: torch.from_numpy(x).to(device).to(dtype),
-                    states, self._state_dtypes),
-                return_states=True)
-            states_out = out.pop('states')
-            if self.served_outputs is not None:
-                out = {k: out[k] for k in self.served_outputs if k in out}
-            host = {k: v.cpu().numpy() for k, v in out.items()}
+                tree_map(lambda x, dtype: torch.from_numpy(x).to(device)
+                         .to(dtype), states, self._state_dtypes))
             new_states = tree_map(lambda t: t.float().cpu().numpy(),
                                   states_out)
-        return host, new_states
+        return host, lambda i: tree_map(lambda x: np.copy(x[i:i + 1]),
+                                        new_states)
+
+    def _run_resident(self, reqs, slot_states, pad):
+        """``device_resident``: stack the slots and join the states on the
+        device; only the served outputs come back. Returns ``(host outputs,
+        slot -> new state)``."""
+        with torch.inference_mode():
+            slots = [eve_lib.batch_to_tensors(r.inputs, self.device)
+                     for r in reqs]
+            slots += [slots[-1]] * pad
+            batch = {k: torch.stack([s[k] for s in slots])
+                     for k in slots[0]}
+            host, states_out = self._forward(
+                batch, tree_map(lambda *xs: torch.cat(xs, dim=0),
+                                *slot_states))
+        return host, lambda i: tree_map(lambda t: t[i:i + 1].clone(),
+                                        states_out)
 
     def _dispatch(self, reqs: List[_Request]):
         # A session closed between submit() and here fails its chunk instead
@@ -512,23 +572,14 @@ class ServingEngine:
         pad = self.max_batch - n
         slot_states = [s.state if s else self._zero_state for s in sessions]
         slot_states += [self._zero_state] * pad
-        batch = {}
-        for k in reqs[0].inputs:
-            stacked = np.stack([r.inputs[k] for r in reqs])
-            if pad:
-                stacked = np.concatenate(
-                    [stacked, np.repeat(stacked[-1:], pad, axis=0)])
-            batch[k] = stacked
-        states = tree_map(lambda *xs: np.concatenate(xs, axis=0),
-                           *slot_states)
-        host, new_states = self._run(batch, states)
+        run = self._run_resident if self.device_resident else self._run_host
+        host, slot_state = run(reqs, slot_states, pad)
 
         with self._sessions_lock:
             for i, s in enumerate(sessions):
                 # The session may have been closed mid-flight.
                 if s is not None and self._sessions.get(s.session_id) is s:
-                    s.state = tree_map(lambda x: np.copy(x[i:i + 1]),
-                                        new_states)
+                    s.state = slot_state(i)
                     s.chunks_processed += 1
                     s.last_used = time.monotonic()
         for i, r in enumerate(reqs):
@@ -543,6 +594,11 @@ class ServingEngine:
             self.stats['requests'] += n
             self.stats['batches'] += 1
             self.stats['batched_slots'] += n
+
+
+def _host_array(v):
+    """A request input as a numpy array (a tensor is copied to the host)."""
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
 
 
 # ----------------------------------------------------------------------

@@ -193,24 +193,35 @@ def bootstrap_pretrained(config, model, pretrained_dir=None):
 
     Searched in ``pretrained_dir`` and ``$EVE_PRETRAINED_DIR``
     (``utils.load_model``): eve_tpu's native ``.npz`` first, then the
-    released reference ``.pt``. With neither present this raises, so a run
-    never trains against a random EyeNet that its config says is
-    pretrained.
+    released reference ``.pt`` (never under the opt-in topology). With
+    none present this raises, so a run never trains against a random
+    EyeNet that its config says is pretrained.
     """
     wanted = (['eye_net'] if config.eye_net_load_pretrained else []) + (
         ['refine_net'] if config.refine_net_enabled and
         config.refine_net_load_pretrained else [])
     for which in wanted:
-        if not load_model.load_pretrained_into(model, config, which,
-                                               pretrained_dir):
+        if load_model.load_pretrained_into(model, config, which,
+                                           pretrained_dir):
+            continue
+        search = load_model.search_dirs(pretrained_dir) or ['<unset>']
+        if config.tpu_native_arch:
+            fname = load_model.pretrained_filename(config, which, '.npz')
             raise FileNotFoundError(
-                'config.%s_load_pretrained is set but neither %s nor %s was '
-                'found (searched: %s); refusing to train against a randomly '
-                'initialised %s' % (
-                    which, *(load_model.pretrained_filename(config, which, e)
-                             for e in ('.npz', '.pt')),
-                    load_model.search_dirs(pretrained_dir) or ['<unset>'],
-                    which))
+                'config.%s_load_pretrained is set with tpu_native_arch but '
+                '%s was not found (searched: %s). The TPU-native topology '
+                'is NOT weight-compatible with the reference release .pt '
+                'checkpoints: export a native stage instead (copy '
+                '<run>/checkpoints/<N>.ckpt/%s.npz to '
+                '$EVE_PRETRAINED_DIR/%s); refusing to train against a '
+                'randomly initialised %s.'
+                % (which, fname, search, which, fname, which))
+        raise FileNotFoundError(
+            'config.%s_load_pretrained is set but neither %s nor %s was '
+            'found (searched: %s); refusing to train against a randomly '
+            'initialised %s' % (
+                which, *load_model.eligible_filenames(config, which),
+                search, which))
     return wanted
 
 

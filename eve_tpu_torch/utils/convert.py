@@ -9,6 +9,14 @@ maps onto them with the reference's own key mapping; this is a copy of
 ``eve_tpu/utils/torch_convert.py``. The released reference ``.pt`` files
 then load into the same modules with plain ``load_state_dict``.
 
+eve_tpu's opt-in topology (``tpu_native_arch``) has no reference layout
+(eve_tpu's ``torch_convert`` refuses it), so its trees map onto port names
+that keep eve_tpu's module names: the patchify stem as
+``cnn_layers.stem_conv``, and RefineNetTPU's ``stem``, ``enc_blocks.K``,
+``dec_blocks.K``, ``rnn_cells.i``, ``final_0``, ``final_2``, ``gate_fc1``
+and ``gate_fc2``. A tree or state dict says which topology it holds: a
+native EyeNet has ``stem_conv``, a native RefineNet ``stem``.
+
 ``eve_params`` is the inverse: a state dict of the port's ``EVE`` back to
 eve_tpu's tree, which the checkpoint writer stores in eve_tpu's layout.
 Both directions only transpose float32 arrays, so a round trip is exact.
@@ -41,17 +49,14 @@ def _put(tree, path, value):
 
 
 def eye_net_state_dict(params):
-    """eve_tpu EyeNet params tree -> reference-named numpy state dict."""
-    if 'stem_conv' in params.get('cnn', {}):
-        raise ValueError(
-            'This EyeNet uses the TPU-native patchify stem (tpu_native_arch), '
-            'which has no reference-layout counterpart.')
+    """eve_tpu EyeNet params tree -> reference-named numpy state dict (the
+    patchify stem as ``cnn_layers.stem_conv``)."""
     sd = {}
     for name, sub in params.items():
         if name == 'cnn':
             for mod, p in sub.items():
-                if mod == 'conv1':
-                    sd['cnn_layers.conv1.weight'] = _conv(p['kernel'])
+                if mod in ('conv1', 'stem_conv'):
+                    sd['cnn_layers.%s.weight' % mod] = _conv(p['kernel'])
                 elif mod == 'fc':
                     sd['cnn_layers.fc.weight'] = _linear(p['kernel'])
                     sd['cnn_layers.fc.bias'] = np.asarray(p['bias'])
@@ -83,40 +88,63 @@ _PREACT = {
 }
 
 
-def refine_net_state_dict(params):
-    """eve_tpu RefineNet params tree -> reference-named numpy state dict."""
-    if 'stem' in params:
-        raise ValueError(
-            'This RefineNet is the TPU-native topology (tpu_native_arch), '
-            'which has no reference-layout counterpart.')
-    sd = {}
-
-    def put(prefix, p):
-        if 'kernel' in p:
-            sd[prefix + '.weight'] = _conv(p['kernel'])
-            if 'bias' in p:
-                sd[prefix + '.bias'] = np.asarray(p['bias'])
-        else:  # instance norm: scale/bias -> weight/bias
-            sd[prefix + '.weight'] = np.asarray(p['scale'])
+def _put_layer(sd, prefix, p):
+    """A conv, dense or instance-norm node of a tree -> ``prefix.weight``
+    (and ``prefix.bias``)."""
+    if 'kernel' in p:
+        k = np.asarray(p['kernel'])
+        sd[prefix + '.weight'] = _conv(k) if k.ndim == 4 else _linear(k)
+        if 'bias' in p:
             sd[prefix + '.bias'] = np.asarray(p['bias'])
+    else:  # instance norm: scale/bias -> weight/bias
+        sd[prefix + '.weight'] = np.asarray(p['scale'])
+        sd[prefix + '.bias'] = np.asarray(p['bias'])
 
+
+def refine_net_tpu_state_dict(params):
+    """eve_tpu RefineNetTPU params tree -> the port's numpy state dict."""
+    sd = {}
+    for name, sub in params.items():
+        if name in ('stem', 'final_0', 'final_2', 'gate_fc1', 'gate_fc2'):
+            _put_layer(sd, name, sub)
+        elif name[:3] in ('enc', 'dec') and name[3:].isdigit():
+            for fname, p in sub.items():
+                _put_layer(sd, '%s_blocks.%s.%s' % (name[:3], name[3:],
+                                                    _PREACT[fname]), p)
+        elif name.startswith('rnn_cell_'):
+            for conv_name, p in sub.items():
+                _put_layer(sd, 'rnn_cells.%s.%s' % (
+                    name[len('rnn_cell_'):], conv_name), p)
+        else:
+            raise KeyError('Unmapped RefineNetTPU module: %s' % name)
+    return sd
+
+
+def refine_net_state_dict(params):
+    """eve_tpu RefineNet params tree -> reference-named numpy state dict
+    (RefineNetTPU's tree -> ``refine_net_tpu_state_dict``)."""
+    if 'stem' in params:
+        return refine_net_tpu_state_dict(params)
+    sd = {}
     for name, sub in params.items():
         if name in ('initial_0', 'initial_1', 'initial_3', 'final_0',
                     'final_2'):
             mod, idx = name.rsplit('_', 1)
-            put('%s.%s' % (mod, idx), sub)
+            _put_layer(sd, '%s.%s' % (mod, idx), sub)
         elif name.startswith('enc') or name.startswith('dec'):
             kind, rest = name[:3], name[3:]
             k, i = rest.split('_')
             prefix = 'network.' + 'between_module.' * int(k)
             tmod = 'encoder_blocks' if kind == 'enc' else 'decoder_blocks'
             for fname, p in sub.items():
-                put('%s%s.%s.%s' % (prefix, tmod, i, _PREACT[fname]), p)
+                _put_layer(sd, '%s%s.%s.%s'
+                           % (prefix, tmod, i, _PREACT[fname]), p)
         elif name.startswith('rnn_cell_'):
             idx = name[len('rnn_cell_'):]
             prefix = 'network.' + 'between_module.' * 5
             for conv_name, p in sub.items():
-                put('%srnn_cells.%s.%s' % (prefix, idx, conv_name), p)
+                _put_layer(sd, '%srnn_cells.%s.%s'
+                           % (prefix, idx, conv_name), p)
         else:
             raise KeyError('Unmapped RefineNet module: %s' % name)
     return sd
@@ -156,8 +184,8 @@ def eye_net_params(state_dict):
         v = np.asarray(v, np.float32)
         parts = key.split('.')
         if parts[0] == 'cnn_layers':
-            if parts[1] == 'conv1':
-                _put(tree, ('cnn', 'conv1', 'kernel'), _conv_back(v))
+            if parts[1] in ('conv1', 'stem_conv'):
+                _put(tree, ('cnn', parts[1], 'kernel'), _conv_back(v))
             elif parts[1] == 'fc':
                 _put(tree, ('cnn', 'fc', 'kernel' if parts[2] == 'weight'
                             else 'bias'), _linear(v) if v.ndim == 2 else v)
@@ -175,8 +203,34 @@ def eye_net_params(state_dict):
     return tree
 
 
+def refine_net_tpu_params(state_dict):
+    """The port's RefineNetTPU state dict -> eve_tpu RefineNetTPU tree."""
+    tree = {}
+    for key, v in state_dict.items():
+        v = np.asarray(v, np.float32)
+        parts = key.split('.')
+        if parts[0].startswith('gate_fc'):
+            _put(tree, (parts[0], 'kernel' if parts[1] == 'weight'
+                        else 'bias'), _linear(v) if v.ndim == 2 else v)
+        elif parts[0] in ('stem', 'final_0', 'final_2'):
+            leaf, value = _layer_back(parts[1], v)
+            _put(tree, (parts[0], leaf), value)
+        elif parts[0] == 'rnn_cells':
+            leaf, value = _layer_back(parts[3], v)
+            _put(tree, ('rnn_cell_' + parts[1], parts[2], leaf), value)
+        else:  # {enc,dec}_blocks.K.{layers,skip_layer}.N.leaf
+            leaf, value = _layer_back(parts[4], v)
+            _put(tree, (parts[0][:3] + parts[1],
+                        _PREACT_BACK['%s.%s' % (parts[2], parts[3])], leaf),
+                 value)
+    return tree
+
+
 def refine_net_params(state_dict):
-    """Reference-named RefineNet state dict -> eve_tpu RefineNet tree."""
+    """Reference-named RefineNet state dict -> eve_tpu RefineNet tree
+    (RefineNetTPU's -> ``refine_net_tpu_params``)."""
+    if 'stem.weight' in state_dict:
+        return refine_net_tpu_params(state_dict)
     tree = {}
     for key, v in state_dict.items():
         v = np.asarray(v, np.float32)

@@ -10,8 +10,12 @@ form is a checkpoint's ``<submodule>.npz`` under the same name with
 
 The port's modules carry the reference's state_dict names, so a released
 ``.pt`` loads with ``load_state_dict`` as it is; an ``.npz`` goes through
-``utils.convert``. eve_tpu's ``_tpu`` file-name markers of the opt-in
-topology are left out: the port does not build that topology yet.
+``utils.convert``. Under eve_tpu's opt-in topology (``tpu_native_arch``)
+the ``.npz`` names carry eve_tpu's markers, ``_tpu`` (``_tpu8`` for a
+``patchify8`` EyeNet: the two stems have the same parameters, so only the
+name tells them apart), and no ``.pt`` is eligible, since the released
+weights cannot express that topology. A file whose shapes differ from the
+configured model's raises eve_tpu's ``ValueError``.
 """
 
 import logging
@@ -30,7 +34,8 @@ SUBMODULES = ('eye_net', 'refine_net')
 
 def pretrained_filename(config, which, ext):
     """The release name of ``which`` under ``config``, plus ``ext``
-    (``'.pt'`` or ``'.npz'``)."""
+    (``'.pt'`` or ``'.npz'``, which carries the opt-in topology's
+    marker)."""
     if which == 'eye_net':
         name = 'eve_eyenet_' + (config.eye_net_rnn_type
                                 if config.eye_net_use_rnn else 'static')
@@ -41,7 +46,20 @@ def pretrained_filename(config, which, ext):
         name += '_skip' if config.refine_net_use_skip_connections else ''
     else:
         raise ValueError('Unknown component: %s' % which)
+    if ext == '.npz' and config.tpu_native_arch:
+        stem = config.tpu_native_stem
+        if which == 'eye_net' and stem != 'patchify':
+            name += {'patchify8': '_tpu8'}.get(stem, '_tpu_' + stem)
+        else:
+            name += '_tpu'
     return name + ext
+
+
+def eligible_filenames(config, which):
+    """The file names ``which`` may load from, in order of preference: the
+    ``.npz``, then (not under the opt-in topology) the released ``.pt``."""
+    exts = ('.npz',) if config.tpu_native_arch else ('.npz', '.pt')
+    return [pretrained_filename(config, which, ext) for ext in exts]
 
 
 def search_dirs(pretrained_dir=None):
@@ -70,8 +88,7 @@ def _load_pt(path, which):
 def load_pretrained(config, which, pretrained_dir=None):
     """The state dict of submodule ``which`` (CPU float32 tensors, the
     reference's names) from the first file found, or None."""
-    names = [pretrained_filename(config, which, ext)
-             for ext in ('.npz', '.pt')]
+    names = eligible_filenames(config, which)
     search = search_dirs(pretrained_dir)
     for d in search:
         for name in names:
@@ -91,5 +108,13 @@ def load_pretrained_into(model, config, which, pretrained_dir=None):
     sd = load_pretrained(config, which, pretrained_dir)
     if sd is None:
         return False
-    getattr(model, which).load_state_dict(sd, strict=True)
+    module = getattr(model, which)
+    want = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in sd.items()}
+    if want != got:
+        diff = sorted(set(want.items()) ^ set(got.items()))
+        raise ValueError(
+            'Pretrained %s does not match the configured architecture; '
+            'mismatched entries: %s' % (which, diff[:10]))
+    module.load_state_dict(sd, strict=True)
     return True

@@ -193,14 +193,35 @@ def test_config_keys_cover_eve_tpu():
 def test_later_slices_raise(specs, model):
     """bfloat16 builds now (tests/test_torch_bf16.py runs it), and any
     other compute_dtype runs float32, as eve_tpu's ``EveSpec.dtype``; the
-    opt-in topology still raises."""
+    opt-in topology builds too (tests/test_torch_native_arch.py runs it),
+    with eve_tpu's fields."""
     bf16 = teve.EVE(dataclasses.replace(specs[1], compute_dtype='bfloat16'))
     assert bf16.refine_net.compute_dtype == torch.bfloat16
     assert bf16.eye_net.cnn_layers.compute_dtype == torch.bfloat16
     f16 = teve.EVE(dataclasses.replace(specs[1], compute_dtype='float16'))
     assert f16.refine_net.compute_dtype == torch.float32
     assert f16.eye_net.cnn_layers.compute_dtype == torch.float32
+    overrides = {'tpu_native_arch': True, 'tpu_native_stem': 'patchify8',
+                 'tpu_native_refine_head': 'gated'}
+    DefaultConfig._reset_instance_for_testing()
+    try:
+        jc = DefaultConfig()
+        jc.import_json(CONFIG)
+        jc.import_dict(overrides)
+        jspec = jeve.EveSpec.from_config(jc)
+    finally:
+        DefaultConfig._reset_instance_for_testing()
     cfg = tconfig.Config()
-    cfg.import_dict({'tpu_native_arch': True})
-    with pytest.raises(NotImplementedError, match='tpu_native_arch'):
-        teve.EveSpec.from_config(cfg)
+    cfg.import_json(CONFIG)
+    cfg.import_dict(overrides)
+    native = teve.EveSpec.from_config(cfg)
+    for field in ('tpu_native_arch', 'tpu_native_stem',
+                  'tpu_native_refine_head'):
+        assert getattr(native, field) == getattr(jspec, field), field
+    assert dataclasses.replace(
+        native, tpu_native_arch=False, tpu_native_stem='patchify',
+        tpu_native_refine_head='heatmap') == specs[1]
+    with torch.device('meta'):
+        net = teve.EVE(native)
+    assert type(net.refine_net).__name__ == 'RefineNetTPU'
+    assert net.eye_net.cnn_layers.stem == 'patchify8'

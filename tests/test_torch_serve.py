@@ -257,8 +257,14 @@ def test_cli_refuses_random_weights():
 
 
 def test_later_slice_modes_raise(specs, params):
+    """``artifact=`` and ``mesh=`` are later slices; ``device_resident=``
+    builds (tests/test_torch_serve_resident.py serves with it)."""
     sd = convert.eve_state_dict(params)
-    for kw in ({'artifact': 'model.eve'}, {'mesh': object()},
-               {'device_resident': True}):
+    for kw in ({'artifact': 'model.eve'}, {'mesh': object()}):
         with pytest.raises(NotImplementedError, match='later slice'):
             ServingEngine(specs[1], sd, device='cpu', **kw)
+    engine = ServingEngine(specs[1], sd, device='cpu', device_resident=True)
+    try:
+        assert engine.device_resident
+    finally:
+        engine.stop()
