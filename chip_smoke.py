@@ -11,7 +11,7 @@
    a time, sigmas 10 and 3 in one launch as ``create_images`` draws them,
    and all three with a validity mask in one launch; soft-argmax of 72x128
    maps in float32 and bfloat16, and of 144x256 maps at N=1, 17, 80; one
-   backward through each ``autograd.Function``). Times both at the serving
+   backward through each custom op). Times both at the serving
    path's N=80 and the Codalab path's N=3840 (render also at S=3) beside an
    empty kernel of the same launch shape, the launch floor, and checks the
    soft-argmax's cluster choice at N=3840.
@@ -126,7 +126,28 @@
    card vs CPU gradients) and one labelled forward each of the 'gated'
    readout and the 'patchify8' stem. Every figure is printed beside the
    reference topology's of the same run.
-11. Prints the kernel table as one JSON line, the card, and last
+11. Export phase (slice H, and remat): (a) the serve phase's weights,
+   written as a checkpoint, exported through ``cli.export_model`` in two
+   child processes at once (``--export-child``), a streaming and a
+   non-streaming artifact at B = 8, T = 10 with uint8 frames: the export's
+   wall time and file size, no kernel launched by tracing; (b) in a child
+   process that imports nothing of ``eve_tpu_torch.models``
+   (``--artifact-serve-child``), ``ServingEngine(artifact=)`` serves the
+   serve phase's rounds, counted (render 1 and soft-argmax 1 a dispatch)
+   and timed as the serving-modes phase times them; outputs and session
+   states held against the live default engine's of phase 9 (bitwise, or
+   within the chunked-vs-whole tolerances with the difference printed); a
+   foreign signature raises; the non-streaming artifact refuses a session
+   and serves the session-less round; one request over HTTP through
+   ``python -m eve_tpu_torch.cli.serve --serve-artifact``; (c) a bfloat16
+   and a native forward exported in process, one dispatch of each held to
+   the live forward (bfloat16 within its drift, native within the float32
+   tolerance); (d) ``tpu_remat`` 'refine' and 'all' on
+   ``configs/refine_net.json`` (B = 8, T = 30) and 'eye' on
+   ``configs/eye_net.json`` (B = 16): step ms and peak memory beside the
+   same model without remat, gradients within the card's float32 limits
+   of those without.
+12. Prints the kernel table as one JSON line, the card, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the run exits non-zero without the last line.
@@ -154,6 +175,7 @@ TRAIN_OUT = os.path.join(ROOT, 'build', 'chip_smoke_train')
 EVAL_OUT = os.path.join(ROOT, 'build', 'chip_smoke_eval')
 CLI_OUT = os.path.join(ROOT, 'build', 'chip_smoke_cli')
 SERVE_OUT = os.path.join(ROOT, 'build', 'chip_smoke_serve')
+EXPORT_OUT = os.path.join(ROOT, 'build', 'chip_smoke_export')
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and float32
 # (non-tensor-core) operations/s.
@@ -298,6 +320,9 @@ NATIVE_STEPS = 4
 # float32 output; a history sums at most EVAL_T decayed maps.
 MAP_ATOL = 1e-3
 HISTORY_ATOL = EVAL_T * MAP_ATOL
+# Remat (slice H's share of slice I): timed train_steps a configuration,
+# after one warm-up step.
+REMAT_STEPS = 3
 
 
 def log(*args):
@@ -426,9 +451,9 @@ def kernel_phase(hk):
                          % (n, h, w, dtype), **SOFTARGMAX_TOL)
             errs['soft_argmax'] = max(errs['soft_argmax'], max_err(ours, ref))
 
-    # The backward of each autograd.Function (the plain formula's, as
-    # eve_tpu's custom_vjp), against autograd of the plain version on the
-    # same inputs, at the serving and the training map counts.
+    # The backward of each custom op (the plain formula's, as eve_tpu's
+    # custom_vjp), against autograd of the plain version on the same
+    # inputs, at the serving and the training map counts.
     for n in (80, TRAIN_B * TRAIN_T):
         c = torch.from_numpy(gen.uniform(0, 1900, (n, 2)).astype(
             np.float32)).to(dev)
@@ -437,8 +462,8 @@ def kernel_phase(hk):
             g = torch.randn((len(sig), n, 72, 128), device=dev,
                             generator=torch.Generator(dev).manual_seed(0))
             ci = c.clone().requires_grad_(True)
-            hk.RenderHeatmaps.apply(ci, sig, msk, (128, 72),
-                                    (1920.0, 1080.0)).backward(g)
+            torch.ops.eve_tpu_torch.render_heatmaps(
+                ci, list(sig), msk, [128, 72], [1920.0, 1080.0]).backward(g)
             cr = c.clone().requires_grad_(True)
             hk.make_heatmaps_multi_plain(cr, sig, msk).backward(g)
             assert_close(ci.grad, cr.grad, 'render backward N=%d S=%d'
@@ -447,8 +472,8 @@ def kernel_phase(hk):
         xi = x.clone().requires_grad_(True)
         gp = torch.randn((n, 2), device=dev,
                          generator=torch.Generator(dev).manual_seed(1))
-        hk.SoftArgmax.apply(xi, (128, 72), (1920.0, 1080.0),
-                            100.0).backward(gp)
+        torch.ops.eve_tpu_torch.soft_argmax(
+            xi, [128, 72], [1920.0, 1080.0], 100.0).backward(gp)
         xr = x.clone().requires_grad_(True)
         hk.soft_argmax_plain(xr).backward(gp)
         assert_close(xi.grad, xr.grad, 'soft_argmax backward N=%d' % n,
@@ -617,10 +642,10 @@ def client_clips(seed, n, t):
     return [{k: v[i] for k, v in inputs.items()} for i in range(n)]
 
 
-def http_infer(server, clip):
+def http_infer(address, clip):
     buf = io.BytesIO()
     np.savez(buf, **clip)
-    conn = http.client.HTTPConnection(*server.server_address, timeout=300)
+    conn = http.client.HTTPConnection(*address, timeout=300)
     try:
         conn.request('POST', '/v1/infer', body=buf.getvalue(),
                      headers={'Content-Type': 'application/octet-stream'})
@@ -760,7 +785,7 @@ def serve_phase(hk):
                     sid))
         pending.append(submit(('loose', 0), loose[0]))
         submitted[('loose', 1)] = time.perf_counter()
-        results[('loose', 1)] = http_infer(server, loose[1])
+        results[('loose', 1)] = http_infer(server.server_address, loose[1])
         done[('loose', 1)] = time.perf_counter()
         for key, fut in pending:
             results[key] = fut.result(timeout=600)
@@ -2714,6 +2739,526 @@ def native_phase(hk, card, ref):
     return out
 
 
+# ---------------------------------------------------------------------------
+# AOT export and artifact serving (slice H), and remat
+# ---------------------------------------------------------------------------
+
+def export_child(args):
+    """A child process of the export phase: ``cli.export_model.main`` on
+    ``argv``; writes the export's wall time and the kernel launches of the
+    whole process (tracing must launch none) to a JSON file."""
+    record_path, argv = args[0], args[1:]
+    sys.path.insert(0, ROOT)
+    from eve_tpu_torch.cli import export_model
+    from eve_tpu_torch.kernels import heatmap_kernels as hk
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    export_model.main(argv)
+    with open(record_path, 'w') as f:
+        json.dump({'seconds': time.perf_counter() - t0,
+                   'launches': dict(hk.LAUNCHES)}, f)
+
+
+def artifact_serve_child(args):
+    """A child process of the export phase: ``ServingEngine(artifact=)``
+    on the streaming artifact, the serve phase's rounds (SESSIONS x CHUNKS
+    chunks, then LOOSE session-less requests) counted and timed as
+    ``serving_modes`` times them, a foreign signature, and the
+    non-streaming artifact (a session refused, the session-less round
+    served); writes the outputs, the sessions' states, the launches, the
+    times and the ``eve_tpu_torch.models`` modules it imported (there must
+    be none) to a pickle. It waits for the artifact HTTP server on
+    ``port``, which loads at the same time, before it times anything."""
+    import pickle
+    out_path, streaming_path, stateless_path, port = args
+    sys.path.insert(0, ROOT)
+    from eve_tpu_torch.kernels import heatmap_kernels as hk
+    from eve_tpu_torch.serve import ServingEngine
+
+    requests = session_requests(client_clips(1, SESSIONS, CHUNKS * T),
+                                client_clips(2, LOOSE, T))
+    t0 = time.perf_counter()
+    engine = timed_engine(artifact=streaming_path, device='cuda',
+                          max_batch=MAX_BATCH, max_delay_ms=20.0)
+    record = {'load_s': time.perf_counter() - t0}
+    try:
+        wait_healthy(int(port), 300)
+        serve_rounds(engine, requests)  # warm-up
+        settle(engine, CHUNKS + 1)
+        engine.walls.clear()
+        batches = engine.get_stats()['batches']
+        # --- the artifact's serving path, counted ---
+        (results, states), record['launches'] = counted(
+            hk, lambda: serve_rounds(engine, requests))
+        # --- end of the counted run ---
+        record['dispatches'] = settle(engine, CHUNKS + 1, batches)
+        record['walls'] = list(engine.walls)
+        record['busy_ms'], record['copies'] = profile_copies(
+            lambda: serve_rounds(engine, requests),
+            os.path.join(EXPORT_OUT, 'trace.json'))
+        bad = {k: v[:T - 1] for k, v in requests[(0, 0)].items()}
+        try:
+            engine.infer(bad, timeout=300)
+        except RuntimeError as e:
+            record['foreign_signature'] = str(e)[:120]
+    finally:
+        engine.stop()
+    record['results'] = results
+    record['states'] = [state_leaves(s) for s in states]
+    engine = ServingEngine(artifact=stateless_path, device='cuda',
+                           max_batch=MAX_BATCH, max_delay_ms=20.0)
+    try:
+        try:
+            engine.open_session()
+        except RuntimeError as e:
+            record['session_refused'] = str(e)[:120]
+        loose = [key for key in requests if key[0] == 'loose']
+        futures = {key: engine.submit(requests[key]) for key in loose}
+        record['stateless'] = {k: f.result(timeout=600)
+                               for k, f in futures.items()}
+    finally:
+        engine.stop()
+    record['models'] = sorted(m for m in sys.modules
+                              if m.startswith('eve_tpu_torch.models'))
+    with open(out_path, 'wb') as f:
+        pickle.dump(record, f)
+
+
+class Process:
+    """A child process whose output goes to ``<EXPORT_OUT>/<name>.log``."""
+
+    def __init__(self, name, argv):
+        self.name = name
+        self.log_path = os.path.join(EXPORT_OUT, name + '.log')
+        self.started = time.perf_counter()
+        with open(self.log_path, 'w') as f:
+            self.proc = subprocess.Popen(argv, cwd=ROOT, stdout=f,
+                                         stderr=subprocess.STDOUT)
+
+    def stop(self):
+        """Kill the process if it still runs (a phase that failed)."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def finish(self, timeout, want=0):
+        """Wait for the exit; raises unless it is ``want``; returns the
+        seconds since the start."""
+        try:
+            code = self.proc.wait(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        seconds = time.perf_counter() - self.started
+        if code != want:
+            with open(self.log_path) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError('%s exited %s (want %s) after %.1f s:\n%s'
+                                 % (self.name, code, want, seconds, tail))
+        return seconds
+
+
+def smoke_child(name, *args):
+    return Process(name, [sys.executable, os.path.join(ROOT, 'chip_smoke.py'),
+                          '--' + name.split('.')[0]] + list(args))
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def wait_healthy(port, timeout, proc=None):
+    """Wait until the server on ``port`` answers /healthz; ``proc``, if
+    given, is its process, whose early exit raises with its log."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if proc is not None and proc.proc.poll() is not None:
+            proc.finish(0)  # raises with its log
+        try:
+            conn = http.client.HTTPConnection('127.0.0.1', port, timeout=5)
+            conn.request('GET', '/healthz')
+            if conn.getresponse().status == 200:
+                return
+        except OSError:
+            pass
+        finally:
+            conn.close()
+        time.sleep(0.2)
+    raise AssertionError('the artifact server did not come up in %d s'
+                         % timeout)
+
+
+def hold_against_live(got, want, what):
+    """Served outputs (``{key: outputs}``) against the live engine's:
+    bitwise, or within the chunked-vs-whole tolerances with the largest
+    difference printed; returns it."""
+    diff = max(float(np.abs(np.asarray(got[key][k], np.float64) -
+                            np.asarray(want[key][k], np.float64)).max())
+               for key in got for k in want[key])
+    if diff == 0.0:
+        log('%s: %d requests bitwise equal to the live engine\'s'
+            % (what, len(got)))
+        return diff
+    log('%s: largest difference to the live engine %.4g' % (what, diff))
+    for key in sorted(got, key=str):
+        compare(got[key], want[key], '%s request %s' % (what, key),
+                CHUNK_PX_ATOL)
+    return diff
+
+
+def artifact_forward(hk, spec_, state_dict, clips, what):
+    """(c): ``spec_`` exported on the card (B = len(clips), T, uint8
+    frames), loaded, and one dispatch of it counted; ``(outputs by clip,
+    launches, export s, bytes)``."""
+    from eve_tpu_torch.export import export_inference, load_exported
+    batch = {k: np.stack([c[k] for c in clips]) for k in clips[0]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob, launches = counted(hk, lambda: export_inference(
+        spec_, state_dict, batch, device='cuda'))
+    seconds = time.perf_counter() - t0
+    if any(launches.values()):
+        raise AssertionError('%s: tracing launched %s' % (what, launches))
+    artifact = load_exported(blob, 'cuda')
+    artifact(batch)  # warm-up
+    out, launches = counted(hk, lambda: artifact(batch))
+    if launches != {'render_heatmaps': 1, 'soft_argmax': 1}:
+        raise AssertionError('%s: a dispatch launched %s' % (what, launches))
+    return ([{k: v[i].float().cpu().numpy() for k, v in out.items()}
+             for i in range(len(clips))], launches, seconds, len(blob))
+
+
+def op_overhead(hk, n=SESSIONS * T, calls=200):
+    """Host microseconds a call of each custom op beside a direct call of
+    its CUDA implementation (the same launch without the dispatcher), at
+    the serving shape: a chain of ``calls`` calls, each kernel a few
+    microseconds, so the host's enqueue time bounds the chain."""
+    gen = np.random.RandomState(3)
+    c = torch.from_numpy(gen.uniform(0, 1900, (n, 2)).astype(
+        np.float32)).cuda()
+    x = torch.from_numpy(gen.uniform(0, 1, (n, 72, 128)).astype(
+        np.float32)).cuda()
+    args = {'render_heatmaps': (c, [10.0], None, [128, 72], [1920.0, 1080.0]),
+            'soft_argmax': (x, [128, 72], [1920.0, 1080.0], 100.0)}
+    impls = {'render_heatmaps': (torch.ops.eve_tpu_torch.render_heatmaps,
+                                 hk._render_cuda),
+             'soft_argmax': (torch.ops.eve_tpu_torch.soft_argmax,
+                             hk._soft_argmax_cuda)}
+    out = {}
+    with torch.inference_mode():
+        for name, fns in impls.items():
+            us = []
+            for fn in fns + fns:  # op, direct, op, direct
+                for _ in range(10):
+                    fn(*args[name])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn(*args[name])
+                us.append(1e6 * (time.perf_counter() - t0) / calls)
+                torch.cuda.synchronize()
+            out[name] = {'op_us': min(us[0::2]), 'direct_us': min(us[1::2])}
+            log('export: %s N=%d: %.1f us of host time a call through the '
+                'custom op, %.1f us calling its CUDA implementation '
+                'directly (%s)' % (name, n, out[name]['op_us'],
+                                   out[name]['direct_us'], card_line()))
+    return out
+
+
+def grad_errors(got, want):
+    """Worst L2 error over its layer's gradient norm and worst element
+    error over its layer's largest element (a layer is a module's weight
+    and bias together), each with its tensor."""
+    layers = {}
+    for name, g in want.items():
+        layers.setdefault(name.rsplit('.', 1)[0], []).append(g.flatten())
+    layer_max = {k: float(torch.cat(v).abs().max()) for k, v in layers.items()}
+    layer_l2 = {k: float(torch.cat(v).norm()) for k, v in layers.items()}
+    def ratio(err, scale):  # a layer without gradient must stay so
+        return err / scale if scale else (0.0 if err == 0 else float('inf'))
+
+    l2 = elem = (0.0, '')
+    for name, g in want.items():
+        layer = name.rsplit('.', 1)[0]
+        d = got[name] - g
+        l2 = max(l2, (ratio(float(d.norm()), layer_l2[layer]), name))
+        elem = max(elem, (ratio(float(d.abs().max()), layer_max[layer]),
+                          name))
+    return l2, elem
+
+
+def remat_run(hk, card, config, batch):
+    """One ``config`` model from seeded weights (``random_state_dict``)
+    on ``batch``: the gradients of one step, then REMAT_STEPS timed
+    ``train_step``s after a warm-up; ``{'grads', 'step_ms', 'peak',
+    'launches'}``."""
+    from eve_tpu_torch.models import eve as eve_lib
+    from eve_tpu_torch.train import harness
+    from eve_tpu_torch.train import step as step_lib
+    spec_ = eve_lib.EveSpec.from_config(config)
+    with torch.device('meta'):  # names and shapes only
+        skeleton = eve_lib.EVE(spec_)
+    model = eve_lib.build_model(spec_, random_state_dict(skeleton, seed=7),
+                                card)
+    step_lib.accumulate_gradients(model, batch,
+                                  harness.kappa_generator(0, 1000))
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    state = step_lib.create_train_state(config, model, 100)
+    step_lib.train_step(state, batch, harness.kappa_generator(0, 0))
+    torch.cuda.synchronize(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    walls = []
+
+    def steps():
+        for i in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            step_lib.train_step(state, batch, harness.kappa_generator(0, i))
+            torch.cuda.synchronize(card)
+            walls.append(time.perf_counter() - t0)
+
+    _, launches = counted(hk, steps)
+    return {'grads': grads, 'step_ms': 1e3 * float(np.median(walls)),
+            'peak': torch.cuda.max_memory_allocated(card),
+            'launches': launches}
+
+
+def remat_phase(hk, card, ref):
+    """(d): ``tpu_remat`` 'refine' and 'all' on configs/refine_net.json at
+    B = TRAIN_B, T = TRAIN_T, and 'eye' on configs/eye_net.json at
+    B = EYE_B: step ms and peak GiB beside the no-remat run of the same
+    model, weights and batch, and the gradients with remat held against
+    those without at the card's float32 limits (CMP_GRAD_L2,
+    CMP_GRAD_ELEM: the card is not deterministic)."""
+    from eve_tpu_torch.config import Config
+    from eve_tpu_torch.models import eve as eve_lib
+
+    def eye_config(**overrides):
+        config = Config()
+        config.import_json(os.path.join(ROOT, 'configs', 'eye_net.json'))
+        config.import_dict(overrides)
+        return config
+
+    out = {}
+    for name, make, b, modes, per_step, ref_ms, ref_peak in (
+            ('refine_net.json', train_config, TRAIN_B, ('refine', 'all'),
+             {'render_heatmaps': 3, 'soft_argmax': 1},
+             ref['train']['step_ms'], ref['train']['peak']),
+            ('eye_net.json', eye_config, EYE_B, ('eye',),
+             {'render_heatmaps': 0, 'soft_argmax': 0},
+             ref['eye_net']['step_ms'], ref['eye_net']['peak'])):
+        clips = synthetic_clips(41, b, TRAIN_T)
+        batch = eve_lib.batch_to_tensors(
+            {k: np.stack([c[k] for c in clips]) for k in clips[0]}, card)
+        runs = {mode: remat_run(hk, card, make(tpu_remat=mode), batch)
+                for mode in ('none',) + modes}
+        base = runs['none']
+        for mode, run in runs.items():
+            want = {k: v * REMAT_STEPS for k, v in per_step.items()}
+            if run['launches'] != want:
+                raise AssertionError('%s remat %s: %d steps launched %s'
+                                     % (name, mode, REMAT_STEPS,
+                                        run['launches']))
+            if mode == 'none':
+                continue
+            l2, elem = grad_errors(run['grads'], base['grads'])
+            log('remat: %s B=%d T=%d tpu_remat=%s: step %.1f ms vs %.1f '
+                'without, peak %.2f GiB vs %.2f (training phase: %.1f ms, '
+                '%.2f GiB) (%s); gradients vs without: worst L2 error %.3g '
+                'of its layer\'s norm (%s), worst element error %.3g of its '
+                'layer\'s largest (%s)' % (
+                    name, b, TRAIN_T, mode, run['step_ms'], base['step_ms'],
+                    run['peak'] / 2 ** 30, base['peak'] / 2 ** 30, ref_ms,
+                    ref_peak / 2 ** 30, card_line(), l2[0], l2[1], elem[0],
+                    elem[1]))
+            if l2[0] > CMP_GRAD_L2 or elem[0] > CMP_GRAD_ELEM:
+                raise AssertionError('%s remat %s: gradients beyond the '
+                                     'limits: %s %s' % (name, mode, l2, elem))
+            out['%s %s' % (name, mode)] = {
+                k: run[k] for k in ('step_ms', 'peak', 'launches')}
+            out['%s %s' % (name, mode)].update(
+                base_ms=base['step_ms'], base_peak=base['peak'])
+        del runs
+    return out
+
+
+def exported_variants(hk, card, live):
+    """(c): one bfloat16 and one native forward of the serving shape
+    exported on the card in this process, loaded, and one dispatch of each
+    held to the live forward (bfloat16 within its drift from float32,
+    native within the float32 tolerance); the dispatches' launches."""
+    from eve_tpu_torch.models import eve as eve_lib
+    streams = live['streams']
+    clips = [{k: v[:T] for k, v in st.items()} for st in streams]
+    variants = {}
+    for tag, overrides, seed in (('bf16', {'tpu_compute_dtype': 'bfloat16'},
+                                  0),
+                                 ('native', {'tpu_native_arch': True}, 31)):
+        vspec = eve_lib.EveSpec.from_config(eval_config(**overrides))
+        with torch.device('meta'):  # names and shapes only
+            vskeleton = eve_lib.EVE(vspec)
+        vstate = random_state_dict(vskeleton, seed=seed)
+        got, vlaunch, seconds, nbytes = artifact_forward(
+            hk, vspec, vstate, clips, tag + ' artifact')
+        want = forward_clips(eve_lib.build_model(vspec, vstate, card), clips,
+                             card)
+        if tag == 'bf16':
+            import dataclasses
+            want32 = forward_clips(eve_lib.build_model(
+                dataclasses.replace(vspec, compute_dtype='float32'), vstate,
+                card), clips, card)
+            drift_ratios(got, want, want32, 'bf16 artifact vs live forward',
+                         BF16_CHUNK_RATIO)
+        else:
+            errs = {}
+            for i in range(len(clips)):
+                for k, v in compare(got[i], want[i], 'native artifact clip %d'
+                                    % i, CHUNK_PX_ATOL).items():
+                    errs[k] = max(errs.get(k, 0.0), v)
+            log('native artifact vs live forward: max abs err %s'
+                % json.dumps(errs))
+        log('%s artifact: exported on the card in %.1f s, %d bytes; a '
+            'dispatch B=%d T=%d launched %s' % (tag, seconds, nbytes,
+                                                 len(clips), T, vlaunch))
+        variants[tag] = vlaunch
+    return variants
+
+
+def export_phase(hk, card, live, ref):
+    """Slice H and remat, after the native phase: (a) the serve phase's
+    weights written as a checkpoint and exported through the CLI in child
+    processes, streaming and not, B = MAX_BATCH, T = T, uint8 frames; (b)
+    ``ServingEngine(artifact=)`` in a child process that imports nothing
+    of the model code, against the live default engine's outputs and
+    states (``live``: the serving-modes phase's float32 run) and timed
+    beside it, and one request over HTTP through ``cli.serve
+    --serve-artifact``; (c) one bfloat16 and one native forward exported
+    and held to the live forward; (d) remat (``remat_phase``)."""
+    import pickle
+
+    from eve_tpu_torch.models import eve as eve_lib
+    from eve_tpu_torch.train import step as step_lib
+    from eve_tpu_torch.train.checkpoint import CheckpointManager
+
+    shutil.rmtree(EXPORT_OUT, ignore_errors=True)
+    os.makedirs(EXPORT_OUT)
+    run_dir = os.path.join(EXPORT_OUT, 'run')
+    config = eval_config()
+    spec_ = eve_lib.EveSpec.from_config(config)
+    with torch.device('meta'):  # names and shapes only
+        skeleton = eve_lib.EVE(spec_)
+    state_dict = random_state_dict(skeleton)  # the serve phase's weights
+    CheckpointManager(run_dir).save_at_step(1, step_lib.create_train_state(
+        config, eve_lib.build_model(spec_, state_dict, 'cpu'), 1))
+
+    # --- (a) export through the CLI, both artifacts at once ---
+    paths = {kind: os.path.join(EXPORT_OUT, kind + '.pt2')
+             for kind in ('streaming', 'stateless')}
+    children = {kind: smoke_child(
+        'export-child.' + kind, os.path.join(EXPORT_OUT, kind + '.json'),
+        CONFIG, '--resume-from', run_dir, '--export-path', paths[kind],
+        '--export-batch-size', str(MAX_BATCH), '--max-sequence-len', str(T),
+        '--tpu-on-device-preprocess', 'yes', '--export-streaming',
+        'yes' if kind == 'streaming' else 'no', '--device', 'cuda')
+        for kind in paths}
+    try:
+        variants = exported_variants(hk, card, live)
+        exports = {}
+        for kind, child in children.items():
+            seconds = child.finish(600)
+            with open(os.path.join(EXPORT_OUT, kind + '.json')) as f:
+                exports[kind] = dict(json.load(f), process_s=seconds,
+                                     bytes=os.path.getsize(paths[kind]))
+    finally:
+        for child in children.values():
+            child.stop()
+    for kind, record in exports.items():
+        if any(record['launches'].values()):
+            raise AssertionError('%s export launched %s' % (
+                kind, record['launches']))
+        log('export: %s artifact B=%d T=%d uint8 through cli.export_model '
+            'in a child: export %.1f s (process %.1f s), %d bytes, kernel '
+            'launches %s' % (kind, MAX_BATCH, T, record['seconds'],
+                             record['process_s'], record['bytes'],
+                             record['launches']))
+
+    # --- (b) serving from the artifacts, in children ---
+    port = free_port()
+    server = Process('serve-artifact', [
+        sys.executable, '-m', 'eve_tpu_torch.cli.serve', '--serve-artifact',
+        paths['streaming'], '--device', 'cuda', '--serve-port', str(port),
+        '--serve-max-delay-ms', '5'])
+    try:
+        child = smoke_child('artifact-serve-child',
+                            os.path.join(EXPORT_OUT, 'serve.pkl'),
+                            paths['streaming'], paths['stateless'], str(port))
+        child.finish(600)
+        with open(os.path.join(EXPORT_OUT, 'serve.pkl'), 'rb') as f:
+            rec = pickle.load(f)  # written by this script's child
+        wait_healthy(port, 120, server)
+        loose = client_clips(2, LOOSE, T)
+        http_out = http_infer(('127.0.0.1', port), loose[0])
+    finally:
+        if server.proc.poll() is None:
+            server.proc.send_signal(signal.SIGTERM)
+        server.finish(60)
+    if rec['models']:
+        raise AssertionError('the artifact child imported %s' % rec['models'])
+    if 'foreign_signature' not in rec or 'session_refused' not in rec:
+        raise AssertionError('a foreign signature or a session on the '
+                             'non-streaming artifact was served: %s' % {
+                                 k: rec.get(k) for k in (
+                                     'foreign_signature', 'session_refused')})
+    launches = rec['launches']
+    if rec['dispatches'] != CHUNKS + 1 or any(
+            launches[k] != rec['dispatches'] for k in launches):
+        raise AssertionError('artifact serving: %d dispatches, launches %s'
+                             % (rec['dispatches'], launches))
+    live_results, live_states = live['runs']['default']
+    hold_against_live(rec['results'], live_results, 'artifact serve')
+    state_diff = max(float(np.abs(a - np.asarray(b, np.float64)).max())
+                     for st, lst in zip(rec['states'], live_states)
+                     for a, b in zip(st, state_leaves(lst)))
+    log('artifact serve: session states vs the live engine\'s: largest '
+        'difference %.4g' % state_diff)
+    for st, lst in zip(rec['states'], live_states):
+        for a, b in zip(st, state_leaves(lst)):
+            if not np.allclose(a, b, rtol=1e-4, atol=OTHER_ATOL):
+                raise AssertionError('artifact session state differs by %g'
+                                     % np.abs(a - b).max())
+    hold_against_live(rec['stateless'], live_results,
+                      'non-streaming artifact serve')
+    hold_against_live({('loose', 0): http_out}, live_results,
+                      'artifact over HTTP (cli.serve --serve-artifact)')
+    wall_ms = 1e3 * float(np.mean(rec['walls']))
+    device_ms = rec['busy_ms'] / rec['dispatches']
+    timing = {'wall_ms': wall_ms, 'device_ms': device_ms,
+              'host_ms': wall_ms - device_ms}
+    base = live['timing']['default']
+    log('artifact serve: %d dispatches of B=%d T=%d, kernel launches %s; a '
+        'dispatch: %.2f ms wall, %.2f ms device busy, %.2f ms host vs the '
+        'live default engine\'s %.2f, %.2f, %.2f (%s); load %.1f s; foreign '
+        'signature refused (%s...); non-streaming artifact refused a '
+        'session (%s...)' % (
+            rec['dispatches'], MAX_BATCH, T, launches, wall_ms, device_ms,
+            wall_ms - device_ms, base['wall_ms'], base['device_ms'],
+            base['host_ms'], card_line(), rec['load_s'],
+            rec['foreign_signature'][:40], rec['session_refused'][:40]))
+    log('artifact serve: dispatch walls ms %s' % ', '.join(
+        '%.2f' % (1e3 * w) for w in rec['walls']))
+
+    overhead = op_overhead(hk)
+    remat = remat_phase(hk, card, ref)
+    return {'exports': exports, 'launches': launches, 'timing': timing,
+            'variants': variants, 'remat': remat, 'overhead': overhead}
+
+
+
 def main():
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA card visible (torch.cuda.is_available() '
@@ -2757,6 +3302,8 @@ def main():
     native = native_phase(hk, torch.device('cuda', 0), {
         'float32': f32,
         'bfloat16': dict(bf16['figures'], modes=resident['bfloat16'])})
+    exported = export_phase(hk, torch.device('cuda', 0), resident['float32'],
+                            f32)
     # Launch counts of the slice F and G paths, by JSON key.
     new_paths = {}
     for dtype, prefix in (('float32', ''), ('bfloat16', 'bf16_')):
@@ -2776,6 +3323,16 @@ def main():
         native['variants']['eye_net']['launches']
     for name, counts in native['variants']['launches'].items():
         new_paths['native_%s_forward_launches' % name] = counts
+    # Slice H: tracing launches nothing; an artifact dispatch launches each
+    # kernel once.
+    for kind, record in exported['exports'].items():
+        new_paths['%s_export_launches' % kind] = record['launches']
+    new_paths['artifact_serve_launches'] = exported['launches']
+    for tag, counts in exported['variants'].items():
+        new_paths['%s_artifact_dispatch_launches' % tag] = counts
+    for key, run in exported['remat'].items():
+        new_paths['remat_%s_launches' % key.replace('.json', '').replace(
+            ' ', '_')] = run['launches']
 
     source = 'eve_tpu_torch/csrc/heatmap_kernels.cu'
     replaces = {'render_heatmaps': 'eve_tpu/kernels/heatmap_kernels.py:38',
@@ -2802,6 +3359,11 @@ def main():
                     **{k: v[name] for k, v in new_paths.items()},
                     **timings[name])
                for name in ('render_heatmaps', 'soft_argmax')]
+    for row in kernels:
+        # Host time a call through the custom op and of the bare launch.
+        row['op_host_us'] = exported['overhead'][row['name']]['op_us']
+        row['direct_host_us'] = \
+            exported['overhead'][row['name']]['direct_us']
     kernels[0]['s3'] = timings['render_heatmaps_s3']
     kernels[0]['n%d_s3' % CODALAB_N] = timings_eval['render_heatmaps_s3']
     log(json.dumps({'kernels': kernels}))
@@ -2815,5 +3377,9 @@ def main():
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--train-cli-child']:
         train_cli_child(sys.argv[2:])
+    elif sys.argv[1:2] == ['--export-child']:
+        export_child(sys.argv[2:])
+    elif sys.argv[1:2] == ['--artifact-serve-child']:
+        artifact_serve_child(sys.argv[2:])
     else:
         sys.exit(main())

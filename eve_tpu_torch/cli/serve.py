@@ -4,11 +4,16 @@
 Usage:
     python -m eve_tpu_torch.cli.serve [config.json ...] [--flags] \
         --resume-from <run_dir> [--serve-port 8000] [--device cuda]
+    python -m eve_tpu_torch.cli.serve --serve-artifact m.pt2 [--flags]
 
 Every configuration key is also a ``--flag``; JSON files apply in order and
 flags override them. ``--resume-from`` names an eve_tpu run directory: the
 newest ``checkpoints/NNNNNNN.ckpt`` is served. Without weights the command
 refuses to start (it never serves random parameters).
+``--serve-artifact`` serves an AOT artifact of
+``python -m eve_tpu_torch.cli.export_model`` instead, reading no
+checkpoint and importing no model code; the artifact fixes the batch size
+and the one input signature.
 
 Protocol (stdlib HTTP, numpy .npz bodies), as eve_tpu's:
 
@@ -71,10 +76,8 @@ def main(argv=None):
     # decimal digits); the port serves float32, so TF32 is off.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    spec, params = model_setup(config)
-    engine = ServingEngine(
-        spec, params, device=args.device,
-        artifact=config.serve_artifact or None,
+    engine_kw = dict(
+        device=args.device,
         mesh=config.serve_num_devices if config.serve_num_devices > 1 else None,
         device_resident=config.serve_device_resident,
         max_batch=config.serve_max_batch,
@@ -83,6 +86,12 @@ def main(argv=None):
         request_timeout_s=config.serve_request_timeout_s,
         max_sessions=config.serve_max_sessions,
         session_ttl_s=config.serve_session_ttl_s)
+    if config.serve_artifact:
+        logger.info('serving from AOT artifact %s', config.serve_artifact)
+        engine = ServingEngine(artifact=config.serve_artifact, **engine_kw)
+    else:
+        spec, params = model_setup(config)
+        engine = ServingEngine(spec, params, **engine_kw)
     server = make_http_server(
         engine, host=config.serve_host, port=config.serve_port,
         max_body_bytes=config.serve_max_body_mb * 1024 * 1024)

@@ -9,19 +9,23 @@ is accepted where a float is expected. So ``configs/eye_net.json`` and
 ``batch_size * base_learning_rate``; setting it is type-checked and has no
 effect, as in eve_tpu.
 
-Keys that ``eve_tpu`` knows but the port does not read yet fall in two
-groups (see ROADMAP.md):
+Keys that ``eve_tpu`` knows but the port does not read fall in two groups
+(see ROADMAP.md):
 
-- ``DEFERRED_KEYS`` (export, multi-host): a JSON file
-  may set them and they are ignored, because nothing the port runs depends
-  on them. ``tpu_on_device_preprocess`` and ``use_native_framepack`` stay
-  here for good: the port's dataset reader always emits uint8 frames, which
-  the model normalises on the device, so there is no host-side float
-  packing to switch;
-- ``UNIMPLEMENTED_KEYS`` (remat, the sequence and model meshes,
-  multi-host): they raise ``NotImplementedError`` when set to anything but
-  their default, so a run never silently differs from the one its config
-  describes.
+- ``DEFERRED_KEYS`` (multi-host, host-side packing): a JSON file may set
+  them and they are ignored, because nothing the port runs depends on
+  them. ``use_native_framepack`` stays here for good: the port's dataset
+  reader always emits uint8 frames, which the model normalises on the
+  device, so there is no host-side float packing to switch. For the same
+  reason the reader ignores ``tpu_on_device_preprocess``; the export CLI
+  reads it, as eve_tpu's does, to give the artifact uint8 frames;
+- ``UNIMPLEMENTED_KEYS`` (the sequence and model meshes, multi-host): they
+  raise ``NotImplementedError`` when set to anything but their default, so
+  a run never silently differs from the one its config describes.
+
+``tpu_remat`` takes eve_tpu's values: 'none', 'eye', 'refine', 'all', or a
+boolean or its command-line spelling ('all' or 'none'); anything else
+raises ``ValueError``.
 
 A key in no set raises, so a typo still fails loudly. Unlike ``eve_tpu``'s
 singleton, every ``Config()`` is a fresh object that the caller creates and
@@ -43,29 +47,40 @@ logger = logging.getLogger(__name__)
 # slice that uses them lands (see ROADMAP.md). ``tpu_use_pallas`` stays
 # here for good: the port always launches its kernels on a CUDA tensor.
 DEFERRED_KEYS = frozenset((
-    'export_batch_size',
-    'export_path', 'export_streaming', 'note', 'prefetch_buffer_size',
+    'note', 'prefetch_buffer_size',
     'tpu_compile_cache_dir', 'tpu_coordinator_address', 'tpu_num_processes',
-    'tpu_on_device_preprocess', 'tpu_process_id', 'tpu_use_pallas',
-    'use_native_framepack',
+    'tpu_process_id', 'tpu_use_pallas', 'use_native_framepack',
 ))
 
 # Options of later slices, with eve_tpu's defaults: any other value raises
 # (NotImplementedError) instead of being ignored.
 UNIMPLEMENTED_KEYS = {
-    'tpu_remat': 'none',
     'tpu_sequence_shards': 1,
     'tpu_model_parallelism': 1,
     'tpu_multihost': False,
 }
 
+_REMAT_MODES = ('none', 'eye', 'refine', 'all')
+
 
 def _normalize_remat(value):
-    """eve_tpu's ``tpu_remat`` spellings of "off" -> 'none'."""
-    if value is False or (isinstance(value, str) and
-                          value.lower() in ('false', 'no', 'n', '0')):
-        return 'none'
-    return value
+    """eve_tpu's ``tpu_remat`` normalisation: a boolean or its command-line
+    spelling -> 'all' or 'none'; a mode name -> itself (lower case); any
+    other value raises, so that a typo such as 'eyes' cannot silently turn
+    rematerialisation off."""
+    if isinstance(value, bool):
+        return 'all' if value else 'none'
+    if isinstance(value, str):
+        low = value.lower()
+        if low in ('true', 'yes', 'y', '1'):
+            return 'all'
+        if low in ('false', 'no', 'n', '0'):
+            return 'none'
+        if low in _REMAT_MODES:
+            return low
+    raise ValueError(
+        'Invalid tpu_remat value %r: expected one of %s (or a boolean)'
+        % (value, list(_REMAT_MODES)))
 
 
 class Config:
@@ -247,6 +262,23 @@ class Config:
     tpu_native_refine_head = 'heatmap'
     # Reference quirk: a CLSTM bottleneck carries only its state.
     reference_compat_clstm_carry_only = True
+    # Recompute activations in the backward pass instead of keeping them
+    # (torch.utils.checkpoint, in training only): 'none', 'eye' (EyeNet's
+    # ResNet features; nothing with a frozen EyeNet, which keeps no graph),
+    # 'refine' (RefineNet's encoder) or 'all'. One extra forward of the
+    # wrapped part for less activation memory.
+    tpu_remat = 'none'
+
+    # AOT export (cli/export_model.py): the artifact's path, its fixed
+    # batch size, and whether it carries the recurrent state across chunks
+    # (the streaming signature). With tpu_on_device_preprocess the
+    # artifact takes uint8 frames (as the port's reader and a client send
+    # them), else float32 frames in [-1, 1] (eve_tpu's default); the
+    # reader ignores the key.
+    export_path = ''
+    export_batch_size = 1
+    export_streaming = False
+    tpu_on_device_preprocess = False
 
     # HTTP serving (serve.py); see eve_tpu_torch.serve.ServingEngine.
     serve_host = '127.0.0.1'
@@ -259,6 +291,9 @@ class Config:
     serve_max_sessions = 1024
     serve_session_ttl_s = 600.0
     serve_num_devices = 0
+    # Serve an AOT artifact (cli/export_model.py) instead of model code and
+    # a checkpoint; it fixes the batch size and the one input signature.
+    # Not with serve_device_resident (ValueError).
     serve_artifact = ''
     serve_device_resident = False
 
@@ -329,8 +364,6 @@ class Config:
                 logger.debug('Ignoring key %s (not used by the port yet)', key)
                 continue
             if key in UNIMPLEMENTED_KEYS:
-                if key == 'tpu_remat':
-                    value = _normalize_remat(value)
                 if value != UNIMPLEMENTED_KEYS[key]:
                     raise NotImplementedError(
                         '%s=%r: the port implements only %r so far; see '
@@ -338,6 +371,8 @@ class Config:
                 continue
             if not hasattr(type(self), key):
                 raise ValueError('Unknown configuration key: ' + key)
+            if key == 'tpu_remat':
+                value = _normalize_remat(value)
             expected = type(getattr(self, key))
             if expected is float and type(value) is int:
                 value = float(value)

@@ -50,23 +50,27 @@ def render_gaze_patches(g_pitchyaw, size):
 
 
 def make_synthetic_batch(rng, batch_size=2, sequence_len=4, eyes_size=64,
-                         frame_dtype=np.float32):
-    """Build a geometry-consistent (B, T, ...) batch with labels (numpy, NHWC).
+                         screen_size=(128, 72), with_screen=True,
+                         with_gt=True, frame_dtype=np.float32):
+    """Build a geometry-consistent (B, T, ...) batch (numpy, NHWC).
 
-    128x72 screen frames at 30 fps. ``frame_dtype=np.uint8`` emits raw
-    camera and screen bytes, as a client sends them.
+    Frames at 30 fps; ``screen_size`` is (width, height) of the screen
+    frames, which ``with_screen=False`` leaves out. ``with_gt=False`` leaves
+    out the labels (a batch as a client sends it), and the eye patches are
+    then noise. ``frame_dtype=np.uint8`` emits raw camera and screen bytes.
     """
     B, T = batch_size, sequence_len
     mm_w, mm_h = 530.0, 300.0  # physical screen size (mm)
     ppm = np.array([1920.0 / mm_w, 1080.0 / mm_h], np.float32)
 
     batch = {}
-    if frame_dtype == np.uint8:
-        batch['screen_frame'] = rng.randint(
-            0, 256, (B, T, 72, 128, 3)).astype(np.uint8)
-    else:
-        batch['screen_frame'] = rng.uniform(
-            0, 1, (B, T, 72, 128, 3)).astype(np.float32)
+    screen_shape = (B, T, screen_size[1], screen_size[0], 3)
+    if with_screen and frame_dtype == np.uint8:
+        batch['screen_frame'] = rng.randint(0, 256, screen_shape).astype(
+            np.uint8)
+    elif with_screen:
+        batch['screen_frame'] = rng.uniform(0, 1, screen_shape).astype(
+            np.float32)
 
     cam_T = np.tile(np.eye(4, dtype=np.float32), (B, T, 1, 1))
     for b in range(B):
@@ -106,24 +110,30 @@ def make_synthetic_batch(rng, batch_size=2, sequence_len=4, eyes_size=64,
         batch[side + '_o_validity'] = ones.copy()
         batch[side + '_R_validity'] = ones.copy()
 
-    PoG_px = np.stack([rng.uniform(200, 1700, (B, T)),
-                       rng.uniform(150, 950, (B, T))], -1).astype(np.float32)
-    PoG_mm = PoG_px / ppm
-    for side in ('left', 'right'):
-        with torch.no_grad():
-            g = geo.calculate_combined_gaze_direction(
-                torch.from_numpy(batch[side + '_o']),
-                torch.from_numpy(PoG_mm), torch.from_numpy(head_R),
-                torch.from_numpy(cam_T))
-        batch[side + '_g_tobii'] = g.numpy()
-        batch[side + '_g_tobii_validity'] = ones.copy()
-        batch[side + '_PoG_tobii'] = PoG_px.copy()
-        batch[side + '_PoG_tobii_validity'] = ones.copy()
-        batch[side + '_p'] = rng.uniform(2, 5, (B, T)).astype(np.float32)
-        batch[side + '_p_validity'] = ones.copy()
+    if with_gt:
+        PoG_px = np.stack([rng.uniform(200, 1700, (B, T)),
+                           rng.uniform(150, 950, (B, T))],
+                          -1).astype(np.float32)
+        PoG_mm = PoG_px / ppm
+        for side in ('left', 'right'):
+            with torch.no_grad():
+                g = geo.calculate_combined_gaze_direction(
+                    torch.from_numpy(batch[side + '_o']),
+                    torch.from_numpy(PoG_mm), torch.from_numpy(head_R),
+                    torch.from_numpy(cam_T))
+            batch[side + '_g_tobii'] = g.numpy()
+            batch[side + '_g_tobii_validity'] = ones.copy()
+            batch[side + '_PoG_tobii'] = PoG_px.copy()
+            batch[side + '_PoG_tobii_validity'] = ones.copy()
+            batch[side + '_p'] = rng.uniform(2, 5, (B, T)).astype(np.float32)
+            batch[side + '_p_validity'] = ones.copy()
 
     for side in ('left', 'right'):
-        patch = render_gaze_patches(batch[side + '_g_tobii'], eyes_size)
+        if with_gt:
+            patch = render_gaze_patches(batch[side + '_g_tobii'], eyes_size)
+        else:
+            patch = rng.randint(0, 256, (B, T, eyes_size, eyes_size, 3)
+                                ).astype(np.uint8)
         if frame_dtype == np.uint8:
             batch[side + '_eye_patch'] = patch
         else:

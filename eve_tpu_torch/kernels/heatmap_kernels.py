@@ -10,14 +10,16 @@ Beside each kernel, in this module:
 - the plain PyTorch version (``make_heatmaps_plain`` and its multi-sigma
   form ``make_heatmaps_multi_plain``, ``soft_argmax_plain``), which the CPU
   runs and which the kernels are held against on the card;
-- the wrapper (``render_heatmaps``, ``soft_argmax``): on a CPU tensor it
-  calls the plain version, on a CUDA tensor it launches the kernel or
-  raises; there is no fallback;
+- a ``torch.library`` custom op (``eve_tpu_torch::render_heatmaps``,
+  ``eve_tpu_torch::soft_argmax``): its CPU implementation is the plain
+  version, its CUDA implementation launches the kernel or raises (there is
+  no fallback), its fake implementation gives the output's shape, so that
+  ``torch.export`` traces the op as one node, and its backward
+  differentiates the plain formula, as eve_tpu's ``custom_vjp`` does
+  (eve_tpu has no backward kernel, so neither has the port);
+- the wrapper (``render_heatmaps``, ``soft_argmax``), which calls the op;
 - a launch count (``LAUNCHES``), bumped once per kernel launch and nowhere
-  else;
-- a ``torch.autograd.Function`` whose forward is the kernel and whose
-  backward differentiates the plain formula, as eve_tpu's ``custom_vjp``
-  does (eve_tpu has no backward kernel, so neither has the port).
+  else.
 
 ``launch_empty_kernel`` launches a kernel that does nothing, for timing the
 launch floor beside the two kernels; it is on no model path.
@@ -25,6 +27,7 @@ launch floor beside the two kernels; it is on no model path.
 
 import ctypes
 import threading
+from typing import List, Optional
 
 import torch
 
@@ -85,8 +88,8 @@ def _check_launch(err, name):
                            % (name, err))
 
 
-def _require_cuda(x, name):
-    if x.device.type != 'cuda':
+def _require_cpu_or_cuda(x, name):
+    if x.device.type not in ('cpu', 'cuda'):
         raise ValueError('%s takes a CPU or CUDA tensor, got %s'
                          % (name, x.device))
 
@@ -167,20 +170,21 @@ def make_heatmaps_multi_plain(centres_px, sigmas, multiplier=None,
     return maps
 
 
-def render_heatmaps(centres_px, sigmas, multiplier=None,
-                    heatmap_size=(HEATMAP_W, HEATMAP_H),
-                    actual_screen_size=SCREEN_SIZE):
-    """(N, 2) float32 centres -> (S, N, H, W) float32 maps, one launch.
+@torch.library.custom_op('eve_tpu_torch::render_heatmaps', mutates_args=(),
+                         device_types='cpu')
+def _render_op(centres_px: torch.Tensor, sigmas: List[float],
+               multiplier: Optional[torch.Tensor], heatmap_size: List[int],
+               actual_screen_size: List[float]) -> torch.Tensor:
+    """The CPU implementation: the plain version."""
+    return make_heatmaps_multi_plain(centres_px, sigmas, multiplier,
+                                     heatmap_size, actual_screen_size)
 
-    ``sigmas`` is a sequence of 1 to ``MAX_SIGMAS`` sigmas; ``multiplier``,
-    if given, an (N,) float32 tensor on the same device.
-    """
-    if centres_px.device.type == 'cpu':
-        return make_heatmaps_multi_plain(centres_px, sigmas, multiplier,
-                                         heatmap_size, actual_screen_size)
-    _require_cuda(centres_px, 'render_heatmaps')
+
+@_render_op.register_kernel('cuda')
+def _render_cuda(centres_px, sigmas, multiplier, heatmap_size,
+                 actual_screen_size):
+    """The CUDA implementation: one launch of the render kernel."""
     w, h = heatmap_size
-    sigmas = tuple(float(s) for s in sigmas)
     if not 1 <= len(sigmas) <= MAX_SIGMAS:
         raise ValueError('render_heatmaps takes 1 to %d sigmas, got %d'
                          % (MAX_SIGMAS, len(sigmas)))
@@ -221,32 +225,55 @@ def render_heatmaps(centres_px, sigmas, multiplier=None,
     return out
 
 
-class RenderHeatmaps(torch.autograd.Function):
-    """Kernel forward, (S, N, H, W); backward to the centres through the
-    plain formula, one sigma at a time, as eve_tpu's ``custom_vjp``
-    differentiates its jnp formula (there is no backward kernel). The
-    multiplier is a mask: no gradient flows to it. In training with a
-    frozen EyeNet the centres carry no gradient, so this backward runs
-    only when EyeNet trains."""
+@_render_op.register_fake
+def _render_fake(centres_px, sigmas, multiplier, heatmap_size,
+                 actual_screen_size):
+    w, h = heatmap_size
+    return centres_px.new_empty(
+        (len(sigmas),) + tuple(centres_px.shape[:-1]) + (h, w),
+        dtype=torch.float32)
 
-    @staticmethod
-    def forward(ctx, centres_px, sigmas, multiplier, heatmap_size,
-                actual_screen_size):
-        ctx.save_for_backward(centres_px, multiplier)
-        ctx.args = (tuple(sigmas), heatmap_size, actual_screen_size)
-        return render_heatmaps(centres_px, sigmas, multiplier, heatmap_size,
-                               actual_screen_size)
 
-    @staticmethod
-    def backward(ctx, grad):
-        centres_px, multiplier = ctx.saved_tensors
-        sigmas, heatmap_size, actual_screen_size = ctx.args
-        with torch.enable_grad():
-            c = centres_px.detach().requires_grad_(True)
-            maps = make_heatmaps_multi_plain(c, sigmas, multiplier,
-                                             heatmap_size, actual_screen_size)
-            (g,) = torch.autograd.grad(maps, c, grad)
-        return g, None, None, None, None
+def _render_setup_context(ctx, inputs, output):
+    centres_px, sigmas, multiplier, heatmap_size, actual_screen_size = inputs
+    ctx.save_for_backward(centres_px, multiplier)
+    ctx.args = (tuple(sigmas), tuple(heatmap_size), tuple(actual_screen_size))
+
+
+def _render_backward(ctx, grad):
+    """To the centres through the plain formula, as eve_tpu's
+    ``custom_vjp`` differentiates its jnp formula (there is no backward
+    kernel). The multiplier is a mask: no gradient flows to it. In training
+    with a frozen EyeNet the centres carry no gradient, so this runs only
+    when EyeNet trains."""
+    centres_px, multiplier = ctx.saved_tensors
+    sigmas, heatmap_size, actual_screen_size = ctx.args
+    with torch.enable_grad():
+        c = centres_px.detach().requires_grad_(True)
+        maps = make_heatmaps_multi_plain(c, sigmas, multiplier, heatmap_size,
+                                         actual_screen_size)
+        (g,) = torch.autograd.grad(maps, c, grad)
+    return g, None, None, None, None
+
+
+_render_op.register_autograd(_render_backward,
+                             setup_context=_render_setup_context)
+
+
+def render_heatmaps(centres_px, sigmas, multiplier=None,
+                    heatmap_size=(HEATMAP_W, HEATMAP_H),
+                    actual_screen_size=SCREEN_SIZE):
+    """(N, 2) float32 centres -> (S, N, H, W) float32 maps: the
+    ``eve_tpu_torch::render_heatmaps`` op, one kernel launch on a CUDA
+    tensor.
+
+    ``sigmas`` is a sequence of 1 to ``MAX_SIGMAS`` sigmas; ``multiplier``,
+    if given, an (N,) float32 tensor on the same device.
+    """
+    _require_cpu_or_cuda(centres_px, 'render_heatmaps')
+    return _render_op(centres_px, [float(s) for s in sigmas], multiplier,
+                      [int(v) for v in heatmap_size],
+                      [float(v) for v in actual_screen_size])
 
 
 # ---------------------------------------------------------------------------
@@ -275,24 +302,22 @@ def soft_argmax_plain(heatmaps, heatmap_size=(HEATMAP_W, HEATMAP_H),
     ], dim=-1)
 
 
-def soft_argmax(heatmaps, heatmap_size=(HEATMAP_W, HEATMAP_H),
-                actual_screen_size=SCREEN_SIZE, beta=SOFTARGMAX_BETA):
-    """(N, H, W) heatmaps -> (N, 2) float32 screen px.
+@torch.library.custom_op('eve_tpu_torch::soft_argmax', mutates_args=(),
+                         device_types='cpu')
+def _soft_argmax_op(heatmaps: torch.Tensor, heatmap_size: List[int],
+                    actual_screen_size: List[float],
+                    beta: float) -> torch.Tensor:
+    """The CPU implementation: the plain version."""
+    return soft_argmax_plain(heatmaps, heatmap_size, actual_screen_size, beta)
 
-    bfloat16 and float16 maps are cast to float32 here; the kernel takes
-    contiguous float32 maps of any height >= 2 and widths W % 4 == 0 up to
-    ``SOFT_ARGMAX_MAX_WIDTH``.
-    """
-    if heatmaps.device.type == 'cpu':
-        return soft_argmax_plain(heatmaps, heatmap_size, actual_screen_size,
-                                 beta)
-    _require_cuda(heatmaps, 'soft_argmax')
+
+@_soft_argmax_op.register_kernel('cuda')
+def _soft_argmax_cuda(heatmaps, heatmap_size, actual_screen_size, beta):
+    """The CUDA implementation: one launch of the soft-argmax kernel."""
     w, h = heatmap_size
     if heatmaps.ndim != 3 or tuple(heatmaps.shape[1:]) != (h, w):
         raise ValueError('soft_argmax takes (N, %d, %d) maps, got %s'
                          % (h, w, tuple(heatmaps.shape)))
-    if heatmaps.dtype in (torch.bfloat16, torch.float16):
-        heatmaps = heatmaps.float()
     if heatmaps.dtype != torch.float32 or not heatmaps.is_contiguous():
         raise ValueError('soft_argmax takes contiguous float32 maps, got %s'
                          % heatmaps.dtype)
@@ -316,26 +341,48 @@ def soft_argmax(heatmaps, heatmap_size=(HEATMAP_W, HEATMAP_H),
     return out
 
 
-class SoftArgmax(torch.autograd.Function):
-    """Kernel forward; backward through the plain formula, as eve_tpu's
-    ``custom_vjp`` differentiates its jnp formula (there is no backward
-    kernel). On the training path its gradient feeds
-    ``loss_mse_PoG_cm_final``."""
+@_soft_argmax_op.register_fake
+def _soft_argmax_fake(heatmaps, heatmap_size, actual_screen_size, beta):
+    return heatmaps.new_empty(tuple(heatmaps.shape[:-2]) + (2,),
+                              dtype=torch.float32)
 
-    @staticmethod
-    def forward(ctx, heatmaps, heatmap_size, actual_screen_size, beta):
-        ctx.save_for_backward(heatmaps)
-        ctx.args = (heatmap_size, actual_screen_size, beta)
-        return soft_argmax(heatmaps, heatmap_size, actual_screen_size, beta)
 
-    @staticmethod
-    def backward(ctx, grad):
-        (heatmaps,) = ctx.saved_tensors
-        with torch.enable_grad():
-            x = heatmaps.detach().requires_grad_(True)
-            (g,) = torch.autograd.grad(soft_argmax_plain(x, *ctx.args),
-                                       x, grad)
-        return g, None, None, None
+def _soft_argmax_setup_context(ctx, inputs, output):
+    heatmaps, heatmap_size, actual_screen_size, beta = inputs
+    ctx.save_for_backward(heatmaps)
+    ctx.args = (tuple(heatmap_size), tuple(actual_screen_size), beta)
+
+
+def _soft_argmax_backward(ctx, grad):
+    """Through the plain formula, as eve_tpu's ``custom_vjp``
+    differentiates its jnp formula (there is no backward kernel). On the
+    training path this gradient feeds ``loss_mse_PoG_cm_final``."""
+    (heatmaps,) = ctx.saved_tensors
+    with torch.enable_grad():
+        x = heatmaps.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(soft_argmax_plain(x, *ctx.args), x, grad)
+    return g, None, None, None
+
+
+_soft_argmax_op.register_autograd(_soft_argmax_backward,
+                                  setup_context=_soft_argmax_setup_context)
+
+
+def soft_argmax(heatmaps, heatmap_size=(HEATMAP_W, HEATMAP_H),
+                actual_screen_size=SCREEN_SIZE, beta=SOFTARGMAX_BETA):
+    """(N, H, W) heatmaps -> (N, 2) float32 screen px: the
+    ``eve_tpu_torch::soft_argmax`` op, one kernel launch on a CUDA tensor.
+
+    bfloat16 and float16 maps are cast to float32 here; the kernel takes
+    contiguous float32 maps of any height >= 2 and widths W % 4 == 0 up to
+    ``SOFT_ARGMAX_MAX_WIDTH``.
+    """
+    _require_cpu_or_cuda(heatmaps, 'soft_argmax')
+    if heatmaps.dtype in (torch.bfloat16, torch.float16):
+        heatmaps = heatmaps.float()
+    return _soft_argmax_op(heatmaps, [int(v) for v in heatmap_size],
+                           [float(v) for v in actual_screen_size],
+                           float(beta))
 
 
 # ---------------------------------------------------------------------------

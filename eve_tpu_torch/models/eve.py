@@ -45,18 +45,26 @@ EyeNet stem (``tpu_native_stem``, see ``resnet``) and ``RefineNetTPU``
 (``refine_net_tpu``). Its ``tpu_native_refine_head`` 'gated' readout keeps
 the soft-argmax's reading as ``PoG_px_heatmap_final`` and returns
 ``PoG_px_final = initial + gate * (heatmap - initial) + delta``, with the
-gate as ``refine_gate`` and two metrics that never enter ``full_loss``. The
-sequence mesh and rematerialization are later slices.
+gate as ``refine_gate`` and two metrics that never enter ``full_loss``.
+
+``EveSpec.remat`` (eve_tpu's ``tpu_remat``) recomputes EyeNet's ResNet
+features ('eye'), RefineNet's encoder ('refine') or both ('all') in the
+backward pass instead of keeping their activations
+(``torch.utils.checkpoint``, as eve_tpu's ``jax.checkpoint``). It applies
+only to a training forward that records a graph: inference, and 'eye'
+under a frozen EyeNet (whose stages keep no graph), are unchanged. The
+sequence mesh is a later slice.
 """
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from eve_tpu_torch import losses as losses_lib
 from eve_tpu_torch.models.cells import CONV_CELLS, DENSE_CELLS, zero_state
@@ -66,6 +74,9 @@ from eve_tpu_torch.models.refine_net import LEVEL_SHAPES, RefineNet
 from eve_tpu_torch.models.refine_net_tpu import RefineNetTPU
 from eve_tpu_torch.ops import geometry as geo
 from eve_tpu_torch.ops import heatmap as hm_ops
+# Re-exported: callers take them from here, as from eve_tpu's module.
+from eve_tpu_torch.utils.tensors import (  # noqa: F401
+    batch_to_tensors, tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +128,18 @@ class EveSpec:
     tpu_native_arch: bool = False
     tpu_native_stem: str = 'patchify'
     tpu_native_refine_head: str = 'heatmap'
+    # Rematerialisation in training: 'none', 'eye' (ResNet features),
+    # 'refine' (RefineNet encoder) or 'all'; eve_tpu's booleans mean 'all'
+    # and 'none'.
+    remat: object = 'none'
+
+    @property
+    def remat_eye(self):
+        return self.remat in (True, 'all', 'eye')
+
+    @property
+    def remat_refine(self):
+        return self.remat in (True, 'all', 'refine')
 
     @property
     def dtype(self):
@@ -191,6 +214,7 @@ class EveSpec:
             tpu_native_arch=config.tpu_native_arch,
             tpu_native_stem=config.tpu_native_stem,
             tpu_native_refine_head=config.tpu_native_refine_head,
+            remat=config.tpu_remat,
         )
 
 
@@ -209,33 +233,19 @@ def _screen_to_float(x):
     return x
 
 
+def _checkpointed(fn, enabled):
+    """``fn``, recomputed in the backward pass (``torch.utils.checkpoint``)
+    when ``enabled`` and a graph is being recorded; else ``fn`` itself.
+    The wrapped stages draw no random numbers, so no RNG state is kept."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False, preserve_rng_state=False)
+
+
 def _nhwc_to_nchw(x):
     """(N, H, W, C) -> contiguous (N, C, H, W)."""
     return x.permute(0, 3, 1, 2).contiguous()
-
-
-def tree_map(fn, *trees):
-    """Map over matching nested dicts and tuples (recurrent states)."""
-    if isinstance(trees[0], dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    if isinstance(trees[0], tuple):
-        return tuple(tree_map(fn, *parts) for parts in zip(*trees))
-    return fn(*trees)
-
-
-def batch_to_tensors(batch, device):
-    """numpy or tensor batch -> tensors on ``device`` (float64 -> float32)."""
-    out = {}
-    for k, v in batch.items():
-        if isinstance(v, np.ndarray):
-            if v.dtype == np.float64:
-                v = v.astype(np.float32)
-            v = torch.from_numpy(np.require(v, requirements=('C', 'W')))
-        if isinstance(v, torch.Tensor):
-            if v.dtype == torch.float64:
-                v = v.float()
-            out[k] = v.to(device, non_blocking=True)
-    return out
 
 
 class EVE(nn.Module):
@@ -300,7 +310,7 @@ class EVE(nn.Module):
                    else contextlib.nullcontext())
         with eye_ctx:
             feats, rnn_l, rnn_r, final_states = self._eye_net_stages(
-                full, B, T, initial_states)
+                full, B, T, initial_states, training)
             # --- Stage 3: heads ---
             g_l, pupil_l = eye_net.heads(rnn_l)
             g_r, pupil_r = eye_net.heads(rnn_r)
@@ -348,7 +358,8 @@ class EVE(nn.Module):
             net_in = refine_net.assemble_input(
                 interm['heatmap_initial'].reshape(BT, h, w), screen,
                 screen_size=spec.screen_size)
-            bottleneck_in, skips = refine_net.encode(net_in)
+            bottleneck_in, skips = _checkpointed(
+                refine_net.encode, training and spec.remat_refine)(net_in)
             if spec.refine_net_use_rnn:
                 if initial_states is not None and 'refine' in initial_states:
                     states = initial_states['refine']
@@ -431,7 +442,7 @@ class EVE(nn.Module):
             output['states'] = final_states
         return output
 
-    def _eye_net_stages(self, full, B, T, initial_states):
+    def _eye_net_stages(self, full, B, T, initial_states, training=False):
         """Stages 1-2: ``(features, rnn_left, rnn_right, final_states)``."""
         spec = self.spec
         eye_net = self.eye_net
@@ -449,7 +460,9 @@ class EVE(nn.Module):
         if spec.eye_net_use_head_pose_input:
             head_pose = torch.cat([full['left_h'].reshape(BT, 2),
                                    full['right_h'].reshape(BT, 2)], dim=0)
-        feats = eye_net.features(patches, head_pose)
+        feats = _checkpointed(eye_net.features,
+                              training and spec.remat_eye)(patches,
+                                                           head_pose)
         feats_l = feats[:BT].reshape(B, T, nf)
         feats_r = feats[BT:].reshape(B, T, nf)
 

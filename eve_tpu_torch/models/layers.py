@@ -13,6 +13,7 @@ do (``kernel.astype(x.dtype)``).
 """
 
 import functools
+import struct
 
 import torch
 import torch.nn as nn
@@ -106,8 +107,19 @@ class InstanceNorm(nn.Module):
 
 @functools.lru_cache(maxsize=None)
 def _rounded(value, dtype):
-    """``value`` rounded to ``dtype``, as a Python float."""
-    return float(torch.tensor(value, dtype=dtype))
+    """``value`` rounded to ``dtype``, as a Python float: to float32, then
+    to bfloat16 by round-to-nearest-even on the float32 bit pattern (as
+    torch rounds a float32 tensor) or to float16 by ``struct``. Plain
+    Python, so a traced forward sees (and the cache keeps) a constant; a
+    tensor made while tracing would be a data-dependent symbol."""
+    if dtype == torch.float64:
+        return float(value)
+    if dtype == torch.float16:
+        return struct.unpack('<e', struct.pack('<e', value))[0]
+    (bits,) = struct.unpack('<I', struct.pack('<f', value))
+    if dtype == torch.bfloat16:
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return struct.unpack('<f', struct.pack('<I', bits))[0]
 
 
 class LeakyReLU(nn.LeakyReLU):
@@ -126,12 +138,20 @@ def adaptive_max_pool(x, out_hw):
     return F.adaptive_max_pool2d(x, tuple(out_hw))
 
 
-@functools.lru_cache(maxsize=None)
 def _resize_weights(n_in, n_out, device, dtype):
     """(n_in, n_out) bilinear weights of ``jax.image.resize`` (triangle
     kernel, no antialiasing): computed in float32 as jax computes them,
-    then cast to ``dtype``. Built outside inference mode, so that a cached
-    matrix may also serve a forward that records a graph."""
+    then cast to ``dtype``. Cached for eager calls; a traced call
+    (``torch.export``) builds the matrix in its graph instead, since a
+    tensor made while tracing is a fake one and must not be kept."""
+    if torch.compiler.is_compiling():
+        return _build_resize_weights(n_in, n_out, device, dtype)
+    return _cached_resize_weights(n_in, n_out, device, dtype)
+
+
+def _build_resize_weights(n_in, n_out, device, dtype):
+    # Outside inference mode, so that a cached matrix may also serve a
+    # forward that records a graph.
     with torch.inference_mode(False):
         inv = torch.tensor(1.0 / (n_out / n_in), dtype=torch.float32,
                            device=device)
@@ -143,6 +163,10 @@ def _resize_weights(n_in, n_out, device, dtype):
         w = w / w.sum(dim=0, keepdim=True)
         inside = (sample >= -0.5) & (sample <= n_in - 0.5)
         return torch.where(inside[None, :], w, 0.0).to(dtype)
+
+
+_cached_resize_weights = functools.lru_cache(maxsize=None)(
+    _build_resize_weights)
 
 
 def resize_bilinear(x, out_hw):

@@ -4,10 +4,12 @@ The counterpart of ``eve_tpu/ops/heatmap.py``. The plain versions
 (``make_heatmaps``, ``soft_argmax``) are the ones beside the kernels in
 ``eve_tpu_torch/kernels/heatmap_kernels.py``. The dispatchers
 ``make_heatmaps_multi_fast`` / ``make_heatmaps_fast`` / ``soft_argmax_fast``
-take any leading dims: on a CUDA tensor they go through the kernel's
-``autograd.Function``, on a CPU tensor through the plain version. There is
-no switch. The multi-sigma form renders several sigmas, optionally times a
-per-centre mask, in one launch.
+take any leading dims and go through the kernels' custom ops
+(``eve_tpu_torch::render_heatmaps``, ``eve_tpu_torch::soft_argmax``) on
+every device: on a CUDA tensor the op launches its kernel, on a CPU tensor
+it runs the plain version, and ``torch.export`` keeps it as one node.
+There is no switch. The multi-sigma form renders several sigmas,
+optionally times a per-centre mask, in one launch.
 
 ``history_update`` / ``decayed_history_scan`` are the O(T) recurrence
 H_t = decay^dt * H_{t-1} + valid_t * h_t, with zero-timestamp (padded)
@@ -17,9 +19,10 @@ frames skipped.
 import torch
 
 from eve_tpu_torch.kernels.heatmap_kernels import (
-    HEATMAP_H, HEATMAP_W, SCREEN_SIZE, SOFTARGMAX_BETA, RenderHeatmaps,
-    SoftArgmax, make_heatmaps_multi_plain as make_heatmaps_multi,
-    make_heatmaps_plain as make_heatmaps, soft_argmax_plain as soft_argmax)
+    HEATMAP_H, HEATMAP_W, SCREEN_SIZE, SOFTARGMAX_BETA,
+    make_heatmaps_multi_plain as make_heatmaps_multi,
+    make_heatmaps_plain as make_heatmaps, render_heatmaps,
+    soft_argmax as soft_argmax_op, soft_argmax_plain as soft_argmax)
 
 __all__ = ['make_heatmaps', 'make_heatmaps_multi', 'soft_argmax',
            'make_heatmaps_multi_fast', 'make_heatmaps_fast',
@@ -76,21 +79,18 @@ def make_heatmaps_multi_fast(centres_px, sigmas, multiplier=None,
     ``multiplier`` (shape ``centres_px.shape[:-1]``), if given, multiplies
     each centre's maps, as a validity mask does.
     """
-    if centres_px.device.type != 'cuda':
-        return make_heatmaps_multi(centres_px, sigmas, multiplier,
-                                   heatmap_size, actual_screen_size)
     lead = centres_px.shape[:-1]
     flat = centres_px.reshape(-1, 2).float().contiguous()
     if multiplier is not None:
         multiplier = multiplier.reshape(-1).float().contiguous()
-    out = RenderHeatmaps.apply(flat, tuple(sigmas), multiplier,
-                               tuple(heatmap_size), tuple(actual_screen_size))
+    out = render_heatmaps(flat, sigmas, multiplier, heatmap_size,
+                          actual_screen_size)
     return out.reshape((out.shape[0],) + lead + out.shape[2:])
 
 
 def make_heatmaps_fast(centres_px, sigma, heatmap_size=(HEATMAP_W, HEATMAP_H),
                        actual_screen_size=SCREEN_SIZE):
-    """``make_heatmaps`` through the render kernel on a CUDA tensor."""
+    """``make_heatmaps`` through the render op."""
     return make_heatmaps_multi_fast(centres_px, (sigma,), None, heatmap_size,
                                     actual_screen_size)[0]
 
@@ -98,11 +98,8 @@ def make_heatmaps_fast(centres_px, sigma, heatmap_size=(HEATMAP_W, HEATMAP_H),
 def soft_argmax_fast(heatmaps, heatmap_size=(HEATMAP_W, HEATMAP_H),
                      actual_screen_size=SCREEN_SIZE,
                      beta=SOFTARGMAX_BETA):
-    """``soft_argmax`` through the soft-argmax kernel on a CUDA tensor."""
-    if heatmaps.device.type != 'cuda':
-        return soft_argmax(heatmaps, heatmap_size, actual_screen_size, beta)
+    """``soft_argmax`` through the soft-argmax op."""
     lead = heatmaps.shape[:-2]
     flat = heatmaps.reshape((-1,) + tuple(heatmaps.shape[-2:])).contiguous()
-    out = SoftArgmax.apply(flat, tuple(heatmap_size),
-                           tuple(actual_screen_size), beta)
+    out = soft_argmax_op(flat, heatmap_size, actual_screen_size, beta)
     return out.reshape(lead + (2,))

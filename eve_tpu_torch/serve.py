@@ -29,10 +29,16 @@ or device-resident), with the same contract:
   batch), and only the served outputs are copied back. Both modes run the
   same batch through the same forward, so their results are equal.
 
+- ``artifact=`` serves an AOT artifact (``eve_tpu_torch.export``) in
+  place of spec and params: no model code is imported, ``max_batch`` is the
+  artifact's batch size, and a request of any other signature fails. A
+  streaming artifact serves sessions and session-less requests (zero
+  states from the artifact's own state types); a non-streaming one refuses
+  sessions.
+
 PyTorch runs eagerly, so there is no per-signature compile cache;
 ``max_signatures`` still bounds the distinct input shapes a client can
-send. AOT artifacts and data-parallel meshes are later slices of the
-port.
+send. Data-parallel meshes are a later slice of the port.
 
 The HTTP front end (``make_http_server``) is stdlib-only with numpy
 ``.npz`` bodies, the same protocol as eve_tpu's.
@@ -54,8 +60,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from eve_tpu_torch.models import eve as eve_lib
-from eve_tpu_torch.models.eve import tree_map
+from eve_tpu_torch.utils.tensors import batch_to_tensors, tree_map
 
 logger = logging.getLogger(__name__)
 
@@ -108,7 +113,8 @@ class Session:
 class ServingEngine:
     """Micro-batching inference engine over one EVE model."""
 
-    def __init__(self, spec, params, *, device='cuda', artifact=None,
+    def __init__(self, spec=None, params=None, *, device='cuda',
+                 artifact=None,
                  max_batch=8, max_delay_ms=5.0,
                  served_outputs=DEFAULT_SERVED_OUTPUTS,
                  max_sessions=1024, max_signatures=8,
@@ -127,19 +133,27 @@ class ServingEngine:
         2x ``request_timeout_s`` so a session with a queued chunk never
         ages out. ``device_resident``: session states and batch assembly on
         the device (see the module docstring).
+
+        ``artifact``: an ``ExportedModel``, or the bytes or path of an
+        artifact exported for ``device``'s type, served in place of
+        ``spec`` and ``params``; it fixes ``max_batch`` and the one input
+        signature.
         """
         if device_resident and artifact is not None:
             raise ValueError(
                 'device_resident serving needs the spec+params path '
                 '(AOT artifacts fix their own input layout)')
-        for name, value in (('artifact', artifact), ('mesh', mesh)):
-            if value is not None:
-                raise NotImplementedError(
-                    '%s= serving is a later slice of the port; see '
-                    'ROADMAP.md' % name)
-        if spec is None or params is None:
-            raise ValueError('pass spec AND params (got spec=%s, params=%s)'
-                             % (type(spec).__name__, type(params).__name__))
+        if mesh is not None:
+            raise NotImplementedError(
+                'mesh= serving is a later slice of the port; see ROADMAP.md')
+        if artifact is None:
+            if spec is None or params is None:
+                raise ValueError(
+                    'pass spec AND params (got spec=%s, params=%s), or '
+                    'artifact=...' % (type(spec).__name__,
+                                      type(params).__name__))
+        elif spec is not None or params is not None:
+            raise ValueError('pass either spec+params or artifact, not both')
         # cuDNN runs float32 convolutions in TF32 by default, which keeps
         # about three decimal digits; the port serves float32 and is held to
         # eve_tpu's float32 results, so TF32 is off for convolutions and
@@ -149,9 +163,29 @@ class ServingEngine:
         self.spec = spec
         self.device = torch.device(device)
         self.device_resident = bool(device_resident)
-        self._model = eve_lib.build_model(
-            spec, {k: torch.as_tensor(v) for k, v in params.items()},
-            self.device)
+        self._model = self._artifact = None
+        if artifact is None:
+            from eve_tpu_torch.models import eve as eve_lib
+            self._model = eve_lib.build_model(
+                spec, {k: torch.as_tensor(v) for k, v in params.items()},
+                self.device)
+            zero = eve_lib.init_stream_state(spec, 1, self.device)
+        else:
+            from eve_tpu_torch.export import ExportedModel, load_exported
+            self._artifact = (artifact if isinstance(artifact, ExportedModel)
+                              else load_exported(artifact, self.device))
+            if self._artifact.device.type != self.device.type:
+                raise ValueError('an artifact for %s cannot serve on %s'
+                                 % (self._artifact.device, self.device))
+            if int(max_batch) != self._artifact.batch_size:
+                logger.warning('max_batch=%d overridden to the artifact\'s '
+                               'exported batch size %d', max_batch,
+                               self._artifact.batch_size)
+            max_batch = self._artifact.batch_size
+            self._artifact_signature = tuple(sorted(
+                (k, shape[1:], dtype)
+                for k, shape, dtype in self._artifact.input_signature))
+            zero = self._artifact.zero_state(1)
         self.max_batch = int(max_batch)
         self.max_delay_s = float(max_delay_ms) / 1e3
         self.served_outputs = (tuple(served_outputs)
@@ -176,12 +210,11 @@ class ServingEngine:
         self._sessions_lock = threading.Lock()
         if self.device_resident:
             # Made once, on the device; every session starts from it.
-            self._zero_state = eve_lib.init_stream_state(spec, 1,
-                                                         self.device)
+            self._zero_state = zero
         else:
-            zero = eve_lib.init_stream_state(spec, 1)
             self._state_dtypes = tree_map(lambda t: t.dtype, zero)
-            self._zero_state = tree_map(lambda t: t.float().numpy(), zero)
+            self._zero_state = tree_map(lambda t: t.float().cpu().numpy(),
+                                        zero)
         self._signatures = set()  # owned by the batcher thread
         self._stats_lock = threading.Lock()
         self.stats = {
@@ -203,11 +236,17 @@ class ServingEngine:
 
     @property
     def model(self):
-        """The served ``EVE`` module (eval mode, on ``self.device``)."""
+        """The served ``EVE`` module (eval mode, on ``self.device``); None
+        when serving an artifact."""
         return self._model
 
     def open_session(self, session_id=None):
         """Allocate fresh recurrent state; returns the session id."""
+        if self._artifact is not None and not self._artifact.streaming:
+            raise RuntimeError(
+                'sessions need a streaming artifact (export with '
+                '--export-streaming yes); this one would reset the '
+                'recurrent state every chunk')
         if self._draining.is_set():
             self._stat_inc('rejected_draining')
             raise EngineDrainingError(
@@ -487,6 +526,14 @@ class ServingEngine:
         return True
 
     def _check_signature(self, signature):
+        if self._artifact is not None:
+            if signature != self._artifact_signature:
+                raise RuntimeError(
+                    'input signature %s does not match the serving '
+                    'artifact\'s exported signature %s (AOT artifacts serve '
+                    'exactly one shape; pad clips client-side or re-export)'
+                    % (signature, self._artifact_signature))
+            return
         if signature not in self._signatures:
             if len(self._signatures) >= self.max_signatures:
                 raise RuntimeError(
@@ -498,8 +545,13 @@ class ServingEngine:
     def _forward(self, batch, states):
         """One padded forward of device tensors: ``(served outputs on the
         host, new states on the device)``."""
-        out = self._model(batch, output_predictions=True,
-                          initial_states=states, return_states=True)
+        if self._artifact is None:
+            out = self._model(batch, output_predictions=True,
+                              initial_states=states, return_states=True)
+        elif self._artifact.streaming:
+            out = self._artifact(batch, states)
+        else:
+            out = dict(self._artifact(batch), states=states)
         states_out = out.pop('states')
         if self.served_outputs is not None:
             out = {k: out[k] for k in self.served_outputs if k in out}
@@ -520,7 +572,7 @@ class ServingEngine:
         device = self.device
         with torch.inference_mode():
             host, states_out = self._forward(
-                eve_lib.batch_to_tensors(batch, device),
+                batch_to_tensors(batch, device),
                 tree_map(lambda x, dtype: torch.from_numpy(x).to(device)
                          .to(dtype), states, self._state_dtypes))
             new_states = tree_map(lambda t: t.float().cpu().numpy(),
@@ -533,7 +585,7 @@ class ServingEngine:
         device; only the served outputs come back. Returns ``(host outputs,
         slot -> new state)``."""
         with torch.inference_mode():
-            slots = [eve_lib.batch_to_tensors(r.inputs, self.device)
+            slots = [batch_to_tensors(r.inputs, self.device)
                      for r in reqs]
             slots += [slots[-1]] * pad
             batch = {k: torch.stack([s[k] for s in slots])

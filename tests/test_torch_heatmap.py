@@ -3,8 +3,9 @@
 The port's plain render and soft-argmax (the versions its CUDA kernels are
 held against on the card) must match eve_tpu's jnp formulations and its
 Pallas kernels run in interpret mode, in value and in gradient. On a CPU
-tensor the wrappers and ``autograd.Function``s take the plain path and
-launch nothing. The multi-sigma render (three sigmas and a validity mask
+tensor the wrappers and the custom ops (``eve_tpu_torch::render_heatmaps``,
+``eve_tpu_torch::soft_argmax``) take the plain path and launch nothing.
+The multi-sigma render (three sigmas and a validity mask
 in one launch) and the soft-argmax of 144 x 256 maps are held against
 eve_tpu the same way. The kernels themselves run only on the card
 (``cuda`` marker; ``chip_smoke.py`` holds them against the plain versions
@@ -101,8 +102,8 @@ def test_render_grad_matches_jax_vjp():
     _, vjp = jax.vjp(lambda x: jhm.make_heatmaps(x, 10.0), jnp.asarray(c))
     (ref,) = vjp(jnp.asarray(g))
     for fn in (lambda x: thm.make_heatmaps(x, 10.0),
-               lambda x: tkern.RenderHeatmaps.apply(
-                   x, (10.0,), None, (128, 72), (1920.0, 1080.0))[0]):
+               lambda x: torch.ops.eve_tpu_torch.render_heatmaps(
+                   x, [10.0], None, [128, 72], [1920.0, 1080.0])[0]):
         ct = torch.from_numpy(c).requires_grad_(True)
         (ours,) = torch.autograd.grad(fn(ct), ct, torch.from_numpy(g))
         np.testing.assert_allclose(ours.numpy(), np.asarray(ref),
@@ -115,8 +116,8 @@ def test_soft_argmax_grad_matches_jax_vjp():
     _, vjp = jax.vjp(jhm.soft_argmax, jnp.asarray(x))
     (ref,) = vjp(jnp.asarray(g))
     for fn in (thm.soft_argmax,
-               lambda y: tkern.SoftArgmax.apply(y, (128, 72),
-                                                (1920.0, 1080.0), 100.0)):
+               lambda y: torch.ops.eve_tpu_torch.soft_argmax(
+                   y, [128, 72], [1920.0, 1080.0], 100.0)):
         xt = torch.from_numpy(x).requires_grad_(True)
         (ours,) = torch.autograd.grad(fn(xt), xt, torch.from_numpy(g))
         # The gradient is beta * screen px * p * (grid - expectation):
@@ -200,8 +201,8 @@ def test_multi_sigma_render_with_mask_matches_eve_tpu(n):
     ct, mt = torch.from_numpy(c), torch.from_numpy(mask)
     for ours in (thm.make_heatmaps_multi_fast(ct, sigmas, multiplier=mt),
                  tkern.render_heatmaps(ct, sigmas, mt),
-                 tkern.RenderHeatmaps.apply(ct, sigmas, mt, (128, 72),
-                                            (1920.0, 1080.0))):
+                 torch.ops.eve_tpu_torch.render_heatmaps(
+                     ct, list(sigmas), mt, [128, 72], [1920.0, 1080.0])):
         assert ours.shape == (3, n, 72, 128)
         for s, sigma in enumerate(sigmas):
             ref = np.asarray(jhm.make_heatmaps(jnp.asarray(c), sigma)
@@ -243,8 +244,9 @@ def test_multi_render_grad_matches_jax_vjp():
     _, vjp = jax.vjp(jax_multi, jnp.asarray(c))
     (ref,) = vjp(jnp.asarray(g))
     ct = torch.from_numpy(c).requires_grad_(True)
-    out = tkern.RenderHeatmaps.apply(ct, sigmas, torch.from_numpy(mask),
-                                     (128, 72), (1920.0, 1080.0))
+    out = torch.ops.eve_tpu_torch.render_heatmaps(
+        ct, list(sigmas), torch.from_numpy(mask), [128, 72],
+        [1920.0, 1080.0])
     (ours,) = torch.autograd.grad(out, ct, torch.from_numpy(g))
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-6)
@@ -276,6 +278,68 @@ def test_soft_argmax_over_old_cap_matches_eve_tpu(n):
         assert ours.shape == (n, 2)
         np.testing.assert_allclose(ours.numpy(), ref, **SOFTARGMAX_TOL)
         np.testing.assert_allclose(ours.numpy(), pallas, **SOFTARGMAX_TOL)
+
+
+@pytest.mark.parametrize('masked', [False, True], ids=['plain', 'masked'])
+def test_render_op_passes_opcheck(masked):
+    """Schema, fake (meta) implementation, autograd registration and
+    AOTAutograd with dynamic shapes, with and without the multiplier."""
+    c = torch.from_numpy(_centres(5)).requires_grad_(True)
+    sigmas, mask = [10.0], None
+    if masked:
+        sigmas, mask = [10.0, 3.0, 5.0], torch.tensor([1., 0., 1., 1., 0.])
+    torch.library.opcheck(torch.ops.eve_tpu_torch.render_heatmaps.default,
+                          (c, sigmas, mask, [128, 72], [1920.0, 1080.0]))
+
+
+def test_soft_argmax_op_passes_opcheck():
+    x = torch.from_numpy(_maps(3)).requires_grad_(True)
+    torch.library.opcheck(torch.ops.eve_tpu_torch.soft_argmax.default,
+                          (x, [128, 72], [1920.0, 1080.0], 100.0))
+
+
+def test_op_gradients_equal_the_plain_formulas():
+    """On the CPU the ops' backward (the plain formula's gradient, as the
+    kernels' former ``autograd.Function``s computed it) equals autograd of
+    the plain versions bitwise."""
+    c = torch.from_numpy(_centres(17))
+    mask = torch.from_numpy((np.arange(17) % 3 != 0).astype(np.float32))
+    g = torch.from_numpy(np.random.RandomState(8).normal(
+        size=(3, 17, 72, 128)).astype(np.float32))
+    grads = []
+    for fn in (lambda x: torch.ops.eve_tpu_torch.render_heatmaps(
+                   x, [10.0, 3.0, 5.0], mask, [128, 72], [1920.0, 1080.0]),
+               lambda x: tkern.make_heatmaps_multi_plain(
+                   x, (10.0, 3.0, 5.0), mask)):
+        x = c.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(x), x, g)[0])
+    assert torch.equal(*grads)
+    maps = torch.from_numpy(_maps(17))
+    gp = torch.from_numpy(np.random.RandomState(9).normal(
+        size=(17, 2)).astype(np.float32))
+    grads = []
+    for fn in (lambda x: torch.ops.eve_tpu_torch.soft_argmax(
+                   x, [128, 72], [1920.0, 1080.0], 100.0),
+               tkern.soft_argmax_plain):
+        x = maps.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(x), x, gp)[0])
+    assert torch.equal(*grads)
+
+
+def test_fake_ops_give_shapes_and_launch_nothing():
+    """Under fake tensors (as ``torch.export`` traces) the ops give their
+    output's shape and type from the fake implementation; no launch is
+    counted."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    tkern.reset_launch_counts()
+    with FakeTensorMode():
+        c = torch.empty((80, 2))
+        maps = tkern.render_heatmaps(c, (10.0, 3.0), torch.empty(80))
+        pog = tkern.soft_argmax(torch.empty((80, 72, 128),
+                                            dtype=torch.bfloat16))
+    assert maps.shape == (2, 80, 72, 128) and maps.dtype == torch.float32
+    assert pog.shape == (80, 2) and pog.dtype == torch.float32
+    assert tkern.LAUNCHES == {'render_heatmaps': 0, 'soft_argmax': 0}
 
 
 @pytest.mark.parametrize('n,quads,sms,want', [

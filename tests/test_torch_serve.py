@@ -257,12 +257,16 @@ def test_cli_refuses_random_weights():
 
 
 def test_later_slice_modes_raise(specs, params):
-    """``artifact=`` and ``mesh=`` are later slices; ``device_resident=``
-    builds (tests/test_torch_serve_resident.py serves with it)."""
+    """``mesh=`` is a later slice; ``artifact=`` serves in place of spec and
+    params, so the two together raise eve_tpu's ``ValueError``
+    (tests/test_torch_serve_artifact.py serves artifacts);
+    ``device_resident=`` builds (tests/test_torch_serve_resident.py serves
+    with it)."""
     sd = convert.eve_state_dict(params)
-    for kw in ({'artifact': 'model.eve'}, {'mesh': object()}):
-        with pytest.raises(NotImplementedError, match='later slice'):
-            ServingEngine(specs[1], sd, device='cpu', **kw)
+    with pytest.raises(NotImplementedError, match='later slice'):
+        ServingEngine(specs[1], sd, device='cpu', mesh=object())
+    with pytest.raises(ValueError, match='not both'):
+        ServingEngine(specs[1], sd, device='cpu', artifact='model.pt2')
     engine = ServingEngine(specs[1], sd, device='cpu', device_resident=True)
     try:
         assert engine.device_resident

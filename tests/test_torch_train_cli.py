@@ -79,7 +79,10 @@ def _flags(root):
             '--base-learning-rate', '1e-5', '--fully-reproducible', 'yes',
             '--train-cameras', '["webcam_c"]', '--test-cameras',
             '["webcam_c"]', '--train-stimuli', '["image"]',
-            '--test-stimuli', '["image"]']
+            '--test-stimuli', '["image"]',
+            # eve_tpu's reader then emits uint8 frames, as the port's
+            # always does (the port's reader ignores the key).
+            '--tpu-on-device-preprocess', 'yes']
 
 
 def test_script_init_common_matches_eve_tpu():
@@ -146,8 +149,7 @@ def runs(tmp_path_factory):
                     return final, sheet
 
                 mp.setattr(jharness, 'test_model_on_all', recorded)
-                mp.setattr(sys, 'argv', ['train.py'] + _flags(root) + [
-                    '--tpu-on-device-preprocess', 'yes'])
+                mp.setattr(sys, 'argv', ['train.py'] + _flags(root))
                 DefaultConfig._reset_instance_for_testing()
                 try:
                     with pytest.raises(SystemExit) as exit_info:
