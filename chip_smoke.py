@@ -147,7 +147,24 @@
    ``configs/eye_net.json`` (B = 16): step ms and peak memory beside the
    same model without remat, gradients within the card's float32 limits
    of those without.
-12. Prints the kernel table as one JSON line, the card, and last
+12. Data-parallel phase (slice I, on the one card, last): (a) the
+   serving-modes phase's float32 sessions through ``ServingEngine(mesh=)``
+   of ``make_mesh(1)``, and of two replicas sharing cuda:0 with
+   ``device_resident`` off and on: outputs and session states held against
+   the default engine's at the serving tolerance, each kernel launched once
+   a dispatch and replica, a dispatch's wall, device and host ms; (b) the
+   Codalab clips through ``infer.iterator(mesh=)`` of two replicas against
+   the same batches on one device (the ragged batch padded and cut),
+   frames/s and peak memory beside one device's; (c) ``cli.train.run`` in
+   child processes (``--dp-child``, torchrun-style environments) for
+   DP_STEPS steps and the final test: one process, a one-rank world over
+   NCCL, and two ranks over gloo that share cuda:0 (B = 4 each; only rank 0
+   writes), each rank's losses within rtol 1e-4 of the one process's and
+   its parameters within the CPU tests' Adam-update limits, step ms beside
+   the one process's; then SIGTERM to rank 1 of two: both exit 143 at the
+   agreement step, and both restarted continue there. No multi-GPU figure:
+   the card is one.
+13. Prints the kernel table as one JSON line, the card, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the run exits non-zero without the last line.
@@ -323,6 +340,14 @@ HISTORY_ATOL = EVAL_T * MAP_ATOL
 # Remat (slice H's share of slice I): timed train_steps a configuration,
 # after one warm-up step.
 REMAT_STEPS = 3
+# Data parallelism (slice I) on one card: mesh serving in three ways (name,
+# replicas on cuda:0, device_resident); the data-parallel CLI runs take
+# DP_STEPS steps, and the preempted two-rank run DP_PREEMPT_STEPS, stopping
+# at the agreement after loop step 8 (the harness agrees every 8 steps).
+MESH_SERVE_MODES = (('mesh 1', 1, False), ('mesh 2', 2, False),
+                    ('mesh 2 resident', 2, True))
+DP_STEPS, DP_PREEMPT_STEPS, DP_PREEMPT_STOP = 3, 10, 9
+DP_OUT = os.path.join(ROOT, 'build', 'chip_smoke_dp')
 
 
 def log(*args):
@@ -1264,24 +1289,27 @@ def train_cli_child(args):
 
 
 class Child:
-    """``python chip_smoke.py --train-cli-child`` as a process whose log
-    lines are kept (and written to ``<name>.log``) as they come."""
+    """``python chip_smoke.py --train-cli-child`` (or the child ``argv``
+    names, None standing for the record path) as a process whose log lines
+    are kept (and written to ``<out_dir>/<name>.log``) as they come."""
 
-    def __init__(self, name, out_base):
+    def __init__(self, name, out_base, argv=None, env=None, out_dir=CLI_OUT):
         self.name = name
-        self.record_path = os.path.join(CLI_OUT, name + '.json')
+        self.out_dir = out_dir
+        self.record_path = os.path.join(out_dir, name + '.json')
         self.lines = []
         self.started = time.time()
+        argv = [self.record_path if a is None else a for a in argv or [
+            '--train-cli-child', None, out_base]]
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.join(ROOT, 'chip_smoke.py'),
-             '--train-cli-child', self.record_path, out_base],
-            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+            [sys.executable, os.path.join(ROOT, 'chip_smoke.py')] + argv,
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
         self.reader = threading.Thread(target=self._read, daemon=True)
         self.reader.start()
 
     def _read(self):
-        with open(os.path.join(CLI_OUT, self.name + '.log'), 'w') as f:
+        with open(os.path.join(self.out_dir, self.name + '.log'), 'w') as f:
             for line in self.proc.stdout:
                 self.lines.append(line.rstrip())
                 f.write(line)
@@ -3259,6 +3287,440 @@ def export_phase(hk, card, live, ref):
 
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism (slice I): mesh serving, mesh eval, data-parallel training
+# ---------------------------------------------------------------------------
+
+def mesh_devices(replicas):
+    """The phase's data mesh: the real ``make_mesh(1)``, or ``replicas``
+    replicas that share cuda:0 (one card: the splitting, gathering and
+    collectives run, the scaling does not)."""
+    from eve_tpu_torch.parallel import mesh as mesh_lib
+    if replicas == 1:
+        return mesh_lib.make_mesh(1)
+    return mesh_lib.make_mesh(devices=[torch.device('cuda', 0)] * replicas)
+
+
+def mesh_serve_phase(hk, base):
+    """(a): the serving-modes phase's sessions and weights through
+    ``ServingEngine(mesh=)`` in each of MESH_SERVE_MODES, counted and timed
+    as ``serving_modes`` times them; every output and session state held
+    against the default engine's of that phase (``base``) at the serving
+    tolerance (cuDNN may pick other algorithms at 4 slots than at 8)."""
+    from eve_tpu_torch.models import eve as eve_lib
+    spec_ = eve_lib.EveSpec.from_config(eval_config())
+    with torch.device('meta'):  # names and shapes only
+        skeleton = eve_lib.EVE(spec_)
+    state_dict = random_state_dict(skeleton)  # the serving-modes weights
+    requests = session_requests(client_clips(1, SESSIONS, CHUNKS * T),
+                                client_clips(2, LOOSE, T))
+    base_results, base_states = base['runs']['default']
+    out = {'launches': {}, 'timing': {}}
+    for name, replicas, resident in MESH_SERVE_MODES:
+        engine = timed_engine(spec=spec_, params=state_dict,
+                              mesh=mesh_devices(replicas),
+                              max_batch=MAX_BATCH, max_delay_ms=20.0,
+                              device_resident=resident)
+        try:
+            serve_rounds(engine, requests)  # warm-up
+            settle(engine, CHUNKS + 1)
+            engine.walls.clear()
+            batches = engine.get_stats()['batches']
+            # --- this mode's serving path, counted ---
+            (results, states), launches = counted(
+                hk, lambda: serve_rounds(engine, requests))
+            # --- end of the counted run ---
+            dispatches = settle(engine, CHUNKS + 1, batches)
+            walls = list(engine.walls)
+            busy_ms, _ = profile_copies(
+                lambda: serve_rounds(engine, requests),
+                os.path.join(SERVE_OUT, 'trace.json'))
+        finally:
+            engine.stop()
+        want = {k: replicas * dispatches
+                for k in ('render_heatmaps', 'soft_argmax')}
+        if dispatches != CHUNKS + 1 or launches != want:
+            raise AssertionError('%s: %d dispatches, launches %s, want %s'
+                                 % (name, dispatches, launches, want))
+        out_err = {}
+        for key in sorted(base_results, key=str):
+            check_outputs(results[key], T, '%s request %s' % (name, key))
+            for k, e in compare(results[key], base_results[key],
+                                '%s request %s vs the default engine'
+                                % (name, key), CHUNK_PX_ATOL).items():
+                out_err[k] = max(out_err.get(k, 0.0), e)
+        state_err = 0.0
+        for st, bst in zip(states, base_states):
+            for a, b in zip(state_leaves(st), state_leaves(bst)):
+                state_err = max(state_err, float(np.abs(a - b).max()))
+                if not np.allclose(a, b, rtol=1e-4, atol=OTHER_ATOL):
+                    raise AssertionError('%s: session state differs by %g'
+                                         % (name, np.abs(a - b).max()))
+        wall_ms = 1e3 * float(np.mean(walls))
+        device_ms = busy_ms / dispatches
+        out['launches'][name] = launches
+        out['timing'][name] = {'wall_ms': wall_ms, 'device_ms': device_ms,
+                               'host_ms': wall_ms - device_ms}
+        log('mesh serve %s: %d dispatches of B=%d T=%d over %d replica(s) '
+            'on cuda:0, kernel launches %s; a dispatch: %.2f ms wall, %.2f '
+            'ms device busy, %.2f ms host (wall - device); walls ms %s (%s)'
+            % (name, dispatches, MAX_BATCH, T, replicas, launches, wall_ms,
+               device_ms, wall_ms - device_ms,
+               ', '.join('%.2f' % (1e3 * w) for w in walls), card_line()))
+        log('mesh serve %s vs the default engine (%d requests, %d '
+            'sessions): max abs err %s, session states %.3g'
+            % (name, len(base_results), len(states), json.dumps(out_err),
+               state_err))
+    return out
+
+
+def mesh_eval_phase(hk, card):
+    """(b): Codalab batches (CODALAB_CLIPS clips, a full batch of
+    CODALAB_BATCH and a ragged one) through ``infer.iterator(mesh=)`` of
+    two replicas on the card, against the same batches without a mesh;
+    frames/s, batch walls and peak memory."""
+    from eve_tpu_torch import infer
+    from eve_tpu_torch.data.loader import DataLoader
+    from eve_tpu_torch.models import eve as eve_lib
+    spec_ = eve_lib.EveSpec.from_config(eval_config())
+    with torch.device('meta'):  # names and shapes only
+        skeleton = eve_lib.EVE(spec_)
+    model = eve_lib.build_model(spec_, random_state_dict(skeleton, seed=21),
+                                card)
+    clips = EvalClips(23, CODALAB_CLIPS, EVAL_T, CODALAB_SEQUENCES,
+                      labels=False)
+    mesh = mesh_devices(2)
+
+    def run(use_mesh, indices=None):
+        loader = DataLoader(clips, batch_size=CODALAB_BATCH, num_workers=4,
+                            indices=indices)
+        walls, t0 = [], time.perf_counter()
+        outs = []
+        for _, _, o in infer.iterator(model, loader, create_images=False,
+                                      materialize_inputs=False,
+                                      mesh=mesh if use_mesh else None):
+            walls.append(time.perf_counter() - t0)
+            outs.append(o)
+            t0 = time.perf_counter()
+        return outs, walls
+
+    # Warm-ups, a full batch each: cuDNN's choices at B = 128 and at the
+    # replicas' B = 64.
+    run(False, range(CODALAB_BATCH))
+    torch.cuda.reset_peak_memory_stats(card)
+    one, one_walls = run(False)
+    one_peak = torch.cuda.max_memory_allocated(card)
+    run(True, range(CODALAB_BATCH))
+    torch.cuda.reset_peak_memory_stats(card)
+    (two, walls), launches = counted(hk, lambda: run(True))
+    peak = torch.cuda.max_memory_allocated(card)
+    n_batches = len(two)
+    want = {k: 2 * n_batches for k in ('render_heatmaps', 'soft_argmax')}
+    if n_batches != -(-CODALAB_CLIPS // CODALAB_BATCH) or launches != want:
+        raise AssertionError('mesh eval: %d batches, launches %s, want %s'
+                             % (n_batches, launches, want))
+    errs = {}
+    for b, (got, ref) in enumerate(zip(two, one)):
+        check_finite(got, ('PoG_px_initial', 'PoG_px_final',
+                           'left_pupil_size'), 'mesh eval batch %d' % b)
+        if not np.array_equal(got['timestamps'], ref['timestamps']):
+            raise AssertionError('mesh eval batch %d: stamps differ' % b)
+        for k, e in compare(got, ref, 'mesh eval batch %d vs one device' % b,
+                            CHUNK_PX_ATOL).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+    frames = CODALAB_CLIPS * EVAL_T
+    log('mesh eval: %d clips of T=%d in %d batches of up to %d over 2 '
+        'replicas on cuda:0 (%d clips a replica; the ragged batch padded to '
+        'the full one, as eve_tpu pads it), kernel launches %s; %.1f '
+        'frames/s (one device: %.1f), a full batch %.3f s (one device: '
+        '%.3f), batch walls %s s (one device: %s), peak device memory %.2f '
+        'GiB (one device: %.2f) (%s)' % (
+            CODALAB_CLIPS, EVAL_T, n_batches, CODALAB_BATCH,
+            CODALAB_BATCH // 2, launches, frames / sum(walls),
+            frames / sum(one_walls), walls[0], one_walls[0],
+            ', '.join('%.3f' % w for w in walls),
+            ', '.join('%.3f' % w for w in one_walls), peak / 2 ** 30,
+            one_peak / 2 ** 30, card_line()))
+    log('mesh eval: outputs vs one device, max abs err %s' % json.dumps(errs))
+    return {'launches': launches, 'frames_per_s': frames / sum(walls),
+            'one_frames_per_s': frames / sum(one_walls), 'peak': peak,
+            'one_peak': one_peak}
+
+
+def dp_argv(steps):
+    """The data-parallel runs' command line: configs/refine_net.json at
+    full width, B = TRAIN_B, ``steps`` steps of one epoch, the final full
+    test, ``--auto-resume yes``, the CLI phase's LR."""
+    return [CONFIG, '--eye-net-load-pretrained', 'no',
+            '--fully-reproducible', 'yes', '--auto-resume', 'yes',
+            '--num-epochs', '1', '--base-learning-rate', str(CLI_BASE_LR),
+            '--batch-size', str(TRAIN_B), '--log-every-n-steps', '1',
+            '--checkpoints-save-every-n-steps', '1000',
+            '--test-every-n-steps', '1000',
+            '--test-num-samples', str(VAL_CLIPS),
+            '--test-batch-size', str(TRAIN_B),
+            '--full-test-batch-size', str(TRAIN_B),
+            '--full-test-data-workers', '2', '--train-data-workers', '4',
+            '--device', 'cuda:0']
+
+
+def dp_child(args):
+    """A child of the data-parallel phase: ``cli.train.run`` as the rank
+    its environment names (none: one process), on ``steps`` x TRAIN_B
+    in-memory clips, with the device group's ``backend`` ('' = the
+    default, NCCL on the card); writes each step's full_loss and wall
+    time, the final test and the kernel launches of the whole run."""
+    record_path, out_base, steps, backend = args
+    sys.path.insert(0, ROOT)
+    from eve_tpu_torch.cli import train as train_cli
+    from eve_tpu_torch.kernels import heatmap_kernels as hk
+    from eve_tpu_torch.train import harness
+
+    record = {'started': time.time(), 'losses': {}, 'walls': {},
+              'images': {}, 'final_test': None}
+    loop, final_test = harness.main_loop_iterator, harness.do_final_full_test
+
+    def observed_loop(exp, train_data, test_data):
+        t0 = time.perf_counter()
+        for step, metrics, images in loop(exp, train_data, test_data):
+            record['losses'][step] = float(metrics['full_loss'])  # syncs
+            record['walls'][step] = time.perf_counter() - t0
+            yield step, metrics, images
+            t0 = time.perf_counter()
+
+    def observed_final_test(exp, test_data):
+        record['final_test'] = final_test(exp, test_data)
+        return record['final_test']
+
+    harness.main_loop_iterator = observed_loop
+    harness.do_final_full_test = observed_final_test
+    config, parsed = harness.script_init_common(dp_argv(int(steps)))
+    hk.reset_launch_counts()
+    try:
+        train_cli.run(config, parsed.device,
+                      [spec('synthetic', 11, int(steps) * TRAIN_B)],
+                      [spec('synthetic_val', 12, VAL_CLIPS)],
+                      output_dir_base=out_base, backend=backend or None)
+    finally:
+        record['launches'] = dict(hk.LAUNCHES)
+        record['peak'] = torch.cuda.max_memory_allocated()
+        with open(record_path, 'w') as f:
+            json.dump(record, f)
+
+
+class DpChild(Child):
+    """``python chip_smoke.py --dp-child`` as rank ``rank`` of a
+    torchrun-style world of ``world`` (``world`` 0: one process)."""
+
+    def __init__(self, name, out_base, steps, world=0, rank=0, port=0,
+                 backend=''):
+        env = dict(os.environ)
+        if world:
+            env.update(RANK=str(rank), WORLD_SIZE=str(world),
+                       MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port))
+        super().__init__(name, out_base, ['--dp-child', None, out_base,
+                                          str(steps), backend], env,
+                         DP_OUT)
+
+
+def dp_world(name, steps, world, backend=''):
+    """``world`` ranks (0: one process) started together; their
+    ``(exit codes, records, children)``."""
+    port = free_port()
+    base = os.path.join(DP_OUT, name)
+    children = [DpChild('%s-rank%d' % (name, r), base, steps, world, r,
+                        port, backend) for r in range(max(world, 1))]
+    results = [c.finish(900) for c in children]
+    return [r[0] for r in results], [r[2] for r in results], children
+
+
+def checkpoint_state(base, step):
+    """The port's state dict of run ``base``'s checkpoint ``step``."""
+    from eve_tpu_torch.utils import convert
+    from eve_tpu_torch.utils.checkpoint import load_params
+    (run_dir,) = [os.path.join(base, 'EVE', d)
+                  for d in os.listdir(os.path.join(base, 'EVE'))]
+    return convert.eve_state_dict(load_params(os.path.join(
+        run_dir, 'checkpoints', '%07d.ckpt' % step))), run_dir
+
+
+def hold_updates(got, want, initial, bound, what):
+    """RefineNet's parameters after the run against the reference run's,
+    as the CPU parity tests hold Adam's updates
+    (``tests/test_torch_train_step.py``): every element within twice the
+    step bound ``bound`` (the sum of the LRs) and 99% within 10% of it.
+    Adam moves an element by about the LR whatever its gradient, so one
+    whose gradient is float32 noise (a bias an instance norm cancels), or
+    that the ill-conditioned gradient routes otherwise, may move either
+    way. Returns the worst layer's difference over its reference update
+    (final - initial) in L2 (a layer is a module's weight and bias
+    together), printed, and the share of elements beyond 10% of the
+    bound."""
+    layers = {}
+    for k in want:
+        if k.startswith('refine_net.'):
+            layers.setdefault(k.rsplit('.', 1)[0], []).append(k)
+    worst, off, total = 0.0, 0, 0
+    for layer, keys in sorted(layers.items()):
+        diff = np.concatenate([(got[k] - want[k]).double().flatten().numpy()
+                               for k in keys])
+        upd = np.concatenate([(want[k] - initial[k]).double().flatten()
+                              .numpy() for k in keys])
+        l2 = np.linalg.norm(diff) / max(np.linalg.norm(upd), 1e-30)
+        worst = max(worst, l2)
+        if np.abs(diff).max() > 2.02 * bound:
+            raise AssertionError('%s: layer %s parameters differ by %.3g of '
+                                 'the step bound (element)'
+                                 % (what, layer, np.abs(diff).max() / bound))
+        off += int((np.abs(diff) > 0.1 * bound + 1e-7).sum())
+        total += diff.size
+    if off > 0.01 * total:
+        raise AssertionError('%s: %d of %d parameters beyond 10%% of the '
+                             'step bound' % (what, off, total))
+    return worst, off / total
+
+
+def dp_train_phase(hk):
+    """(c): ``cli.train`` in child processes, ``configs/refine_net.json``
+    at B = TRAIN_B, T = TRAIN_T, DP_STEPS steps and the final full test:
+    one process; a world of one rank over NCCL; two ranks over gloo that
+    share cuda:0 (B = TRAIN_B / 2 each): each held against the one
+    process's losses and parameters at the card's limits. Then two gloo
+    ranks for DP_PREEMPT_STEPS steps, SIGTERM to rank 1 only: both exit
+    143 at the agreement step, and a restart with the same command
+    continues there."""
+    from eve_tpu_torch.models import eve as eve_lib
+    from eve_tpu_torch.train import optim as optim_lib
+    shutil.rmtree(DP_OUT, ignore_errors=True)
+    os.makedirs(DP_OUT)
+    # The children need the card's memory that this process's caching
+    # allocator keeps from the phases before.
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, world, backend in (('one', 0, ''), ('nccl', 1, ''),
+                                 ('gloo', 2, 'gloo')):
+        codes, records, children = dp_world(name, DP_STEPS, world, backend)
+        if codes != [0] * len(codes):
+            raise AssertionError('%s run exited %s; last lines:\n%s' % (
+                name, codes, '\n'.join(l for c in children
+                                       for l in c.lines[-20:])))
+        for r in records:
+            if sorted(r['losses']) != list(range(DP_STEPS)) or \
+                    not r['final_test']:
+                raise AssertionError('%s run: steps %s, final test %s'
+                                     % (name, sorted(r['losses']),
+                                        r['final_test']))
+        runs[name] = {'records': records, 'children': children}
+    for c in runs['nccl']['children']:
+        if not c.grep('nccl device group'):
+            raise AssertionError('the one-rank world did not run over NCCL')
+    gloo = runs['gloo']['children']
+    if not gloo[0].grep('gloo with CUDA tensors') or \
+            not gloo[0].grep('> Saved parameters to') or \
+            gloo[1].grep('> Saved parameters to'):
+        raise AssertionError('two-rank run: gloo-on-CUDA log %s, saves by '
+                             'rank 0 %d and rank 1 %d' % (
+                                 gloo[0].grep('gloo with CUDA tensors'),
+                                 len(gloo[0].grep('> Saved parameters')),
+                                 len(gloo[1].grep('> Saved parameters'))))
+    ref = runs['one']['records'][0]
+    want = np.array([ref['losses'][s] for s in range(DP_STEPS)])
+    config = train_config(base_learning_rate=CLI_BASE_LR)
+    spec_ = eve_lib.EveSpec.from_config(config)
+    initial = eve_lib.init_model(spec_, torch.Generator().manual_seed(0),
+                                 'cpu').state_dict()
+    schedule = optim_lib.make_schedule(config, DP_STEPS)
+    bound = sum(schedule(u) for u in range(DP_STEPS))
+    ref_state, _ = checkpoint_state(os.path.join(DP_OUT, 'one'), DP_STEPS)
+    out = {'launches': {}, 'step_ms': {}}
+    ref_ms = 1e3 * float(np.median([ref['walls'][s]
+                                    for s in range(1, DP_STEPS)]))
+    for name in ('nccl', 'gloo'):
+        records = runs[name]['records']
+        got = np.array([records[0]['losses'][s] for s in range(DP_STEPS)])
+        for r in records[1:]:
+            if [r['losses'][s] for s in range(DP_STEPS)] != got.tolist():
+                raise AssertionError('%s: the ranks logged other losses'
+                                     % name)
+        np.testing.assert_allclose(got, want, **CMP_LOSS_TOL,
+                                   err_msg='%s vs one process' % name)
+        state, _ = checkpoint_state(os.path.join(DP_OUT, name), DP_STEPS)
+        l2, off = hold_updates(state, ref_state, initial, bound,
+                               '%s vs one process' % name)
+        launches = {k: sum(r['launches'][k] for r in records)
+                    for k in ('render_heatmaps', 'soft_argmax')}
+        # A step renders 3 and soft-argmaxes 1 on every rank; the final
+        # test's batches of TRAIN_B clips 2 and 1, split over the ranks.
+        val_batches = len(records) * -(-VAL_CLIPS // TRAIN_B)
+        wanted = {'render_heatmaps': 3 * DP_STEPS * len(records) +
+                  2 * val_batches,
+                  'soft_argmax': DP_STEPS * len(records) + val_batches}
+        if launches != wanted:
+            raise AssertionError('%s: launches %s, want %s'
+                                 % (name, launches, wanted))
+        step_ms = 1e3 * float(np.median([records[0]['walls'][s]
+                                         for s in range(1, DP_STEPS)]))
+        out['launches'][name] = launches
+        out['step_ms'][name] = step_ms
+        log('dp train %s (%d rank(s), B=%d T=%d a step, %d on each rank): '
+            'full_loss %s vs one process %s, max rel err %.3g (limit rtol '
+            '%g); parameters vs one process: %.3g%% of them beyond 10%% of '
+            'the step bound %.3g (limit 1%%, all within twice it), the worst '
+            'layer\'s difference %.3g of its update (L2); kernel launches %s'
+            % (name, len(records), TRAIN_B, TRAIN_T,
+               TRAIN_B // len(records), ', '.join('%.6f' % x for x in got),
+               ', '.join('%.6f' % x for x in want),
+               float(np.max(np.abs(got - want) / np.abs(want))),
+               CMP_LOSS_TOL['rtol'], 100 * off, bound, l2, launches))
+        log('dp train %s: step wall %.1f ms (median of steps 2-%d, rank 0) '
+            'beside the one process\'s %.1f ms in this run; peak device '
+            'memory %s GiB; one card (%s): not a scaling figure'
+            % (name, step_ms, DP_STEPS, ref_ms, ', '.join(
+                '%.2f' % (r['peak'] / 2 ** 30) for r in records),
+               card_line()))
+    out['step_ms']['one'] = ref_ms
+
+    # --- SIGTERM to rank 1 of two: both stop at the agreement ---
+    port, base = free_port(), os.path.join(DP_OUT, 'preempted')
+    ranks = [DpChild('preempted-rank%d' % r, base, DP_PREEMPT_STEPS, 2, r,
+                     port, 'gloo') for r in range(2)]
+    ranks[1].wait_for('Step 2,', 600)
+    ranks[1].proc.send_signal(signal.SIGTERM)
+    results = [c.finish(300) for c in ranks]
+    stop = DP_PREEMPT_STOP
+    for c, (code, _, record) in zip(ranks, results):
+        saved = c.grep('checkpoint saved at step')
+        if code != 143 or not saved or \
+                'checkpoint saved at step %d;' % stop not in saved[-1] or \
+                sorted(record['losses']) != list(range(stop)):
+            raise AssertionError('%s exited %s, log %s, steps %s'
+                                 % (c.name, code, saved,
+                                    sorted(record['losses'])))
+    if ranks[1].grep('> Saved parameters to'):
+        raise AssertionError('rank 1 wrote a checkpoint')
+    _, run_dir = checkpoint_state(base, stop)
+    log('dp train: SIGTERM to rank 1 of 2 after its log showed step 2: both '
+        'ranks exited 143 with "checkpoint saved at step %d" (the agreement '
+        'every 8 steps), rank 0 wrote %s' % (
+            stop, os.path.relpath(os.path.join(run_dir, 'checkpoints',
+                                               '%07d.ckpt' % stop), ROOT)))
+    port = free_port()
+    again = [DpChild('resumed-rank%d' % r, base, DP_PREEMPT_STEPS, 2, r, port,
+                     'gloo') for r in range(2)]
+    results = [c.finish(600) for c in again]
+    for c, (code, _, record) in zip(again, results):
+        if code != 0 or not c.grep('auto_resume: continuing %s' % run_dir) \
+                or sorted(record['losses']) != list(
+                    range(stop, DP_PREEMPT_STEPS)) or not record['final_test']:
+            raise AssertionError('%s exited %s, steps %s' % (
+                c.name, code, sorted(record['losses'])))
+    log('dp train: the restart of both ranks continued %s at step %d, took '
+        'steps %d-%d, ran the final test and exited 0' % (
+            os.path.relpath(run_dir, ROOT), stop + 1, stop + 1,
+            DP_PREEMPT_STEPS))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA card visible (torch.cuda.is_available() '
@@ -3304,6 +3766,9 @@ def main():
         'bfloat16': dict(bf16['figures'], modes=resident['bfloat16'])})
     exported = export_phase(hk, torch.device('cuda', 0), resident['float32'],
                             f32)
+    mesh_serve = mesh_serve_phase(hk, resident['float32'])
+    mesh_eval = mesh_eval_phase(hk, torch.device('cuda', 0))
+    dp_train = dp_train_phase(hk)
     # Launch counts of the slice F and G paths, by JSON key.
     new_paths = {}
     for dtype, prefix in (('float32', ''), ('bfloat16', 'bf16_')):
@@ -3333,6 +3798,15 @@ def main():
     for key, run in exported['remat'].items():
         new_paths['remat_%s_launches' % key.replace('.json', '').replace(
             ' ', '_')] = run['launches']
+    # Slice I: each replica's forward launches each kernel once; each rank
+    # renders 3 and soft-argmaxes 1 a step.
+    for name, counts in mesh_serve['launches'].items():
+        new_paths['%s_serve_launches' % name.replace(' ', '_')] = counts
+    new_paths['mesh_2_codalab_launches'] = mesh_eval['launches']
+    new_paths['dp_nccl_world1_train_launches'] = \
+        dp_train['launches']['nccl']
+    new_paths['dp_gloo_two_rank_train_launches'] = \
+        dp_train['launches']['gloo']
 
     source = 'eve_tpu_torch/csrc/heatmap_kernels.cu'
     replaces = {'render_heatmaps': 'eve_tpu/kernels/heatmap_kernels.py:38',
@@ -3381,5 +3855,7 @@ if __name__ == '__main__':
         export_child(sys.argv[2:])
     elif sys.argv[1:2] == ['--artifact-serve-child']:
         artifact_serve_child(sys.argv[2:])
+    elif sys.argv[1:2] == ['--dp-child']:
+        dp_child(sys.argv[2:])
     else:
         sys.exit(main())

@@ -12,6 +12,11 @@ concatenated timestamps, pupil sizes and ``PoG_px_{initial,final}`` of its
 clips, pickled with protocol 3. ``collect`` and ``write_submission`` are
 the two halves, usable on any iterator of ``infer.iterator``'s form.
 Reading the dataset needs ``h5py`` and ``ffmpeg`` or ``cv2``.
+
+``--tpu-num-devices N`` (0, the default, is every visible card) evaluates
+data-parallel in this process over the largest count up to N that divides
+``codalab_eval_batch_size`` (``_eval_mesh``); the submission is the one
+device's.
 """
 
 import gzip
@@ -28,6 +33,7 @@ from eve_tpu_torch import infer
 from eve_tpu_torch.cli import common
 from eve_tpu_torch.data.dataset import EVESequences_test
 from eve_tpu_torch.data.loader import DataLoader
+from eve_tpu_torch.parallel import mesh as mesh_lib
 
 logger = logging.getLogger(__name__)
 
@@ -51,6 +57,28 @@ def init_dataset(config):
                             shuffle=False, drop_last=False,
                             num_workers=config.codalab_eval_data_workers)
     return dataset, dataloader
+
+
+def _eval_mesh(config, batch_size, device='cuda'):
+    """The data-parallel eval mesh (``--tpu-num-devices``, 0 = all), or
+    None for one device.
+
+    eve_tpu's rule: the largest device count that divides the batch, so
+    every device takes an equal share of the clips, with a warning when
+    that is fewer than the available devices. On the card the devices are
+    ``cuda:0..n-1``; on another device type (the CPU) n replicas of it.
+    """
+    device = torch.device(device)
+    visible = torch.cuda.device_count() if device.type == 'cuda' else 1
+    n_use = mesh_lib.data_axis_size(
+        batch_size, config.tpu_num_devices or visible,
+        'codalab_eval_batch_size')
+    if n_use <= 1:
+        return None
+    logger.info('evaluating data-parallel over %d devices', n_use)
+    if device.type == 'cuda':
+        return mesh_lib.make_mesh(n_use)
+    return mesh_lib.make_mesh(devices=[device] * n_use)
 
 
 def collect(batches):
@@ -101,9 +129,11 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     _, dataloader = init_dataset(config)
     model = infer.model_setup(config, device=args.device)
+    mesh = _eval_mesh(config, config.codalab_eval_batch_size, args.device)
     # Only the host-side strings are read from the inputs.
     outputs_to_write = collect(infer.iterator(
-        model, dataloader, create_images=False, materialize_inputs=False))
+        model, dataloader, create_images=False, materialize_inputs=False,
+        mesh=mesh))
     _, zip_path = write_submission(outputs_to_write, config.resume_from)
     print('> Wrote %s' % zip_path)
     return zip_path

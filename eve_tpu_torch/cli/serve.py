@@ -13,7 +13,10 @@ refuses to start (it never serves random parameters).
 ``--serve-artifact`` serves an AOT artifact of
 ``python -m eve_tpu_torch.cli.export_model`` instead, reading no
 checkpoint and importing no model code; the artifact fixes the batch size
-and the one input signature.
+and the one input signature. ``--serve-num-devices N`` (N > 1) serves
+data-parallel over N cards in this process (``ServingEngine(mesh=N)``:
+the model on each, every dispatch's slots split over them;
+``--serve-max-batch`` must divide by N; not with ``--serve-artifact``).
 
 Protocol (stdlib HTTP, numpy .npz bodies), as eve_tpu's:
 
@@ -86,6 +89,9 @@ def main(argv=None):
         request_timeout_s=config.serve_request_timeout_s,
         max_sessions=config.serve_max_sessions,
         session_ttl_s=config.serve_session_ttl_s)
+    if engine_kw['mesh']:
+        logger.info('serving data-parallel over %d devices',
+                    config.serve_num_devices)
     if config.serve_artifact:
         logger.info('serving from AOT artifact %s', config.serve_artifact)
         engine = ServingEngine(artifact=config.serve_artifact, **engine_kw)

@@ -12,16 +12,21 @@ effect, as in eve_tpu.
 Keys that ``eve_tpu`` knows but the port does not read fall in two groups
 (see ROADMAP.md):
 
-- ``DEFERRED_KEYS`` (multi-host, host-side packing): a JSON file may set
+- ``DEFERRED_KEYS`` (host-side packing and caches): a JSON file may set
   them and they are ignored, because nothing the port runs depends on
   them. ``use_native_framepack`` stays here for good: the port's dataset
   reader always emits uint8 frames, which the model normalises on the
   device, so there is no host-side float packing to switch. For the same
   reason the reader ignores ``tpu_on_device_preprocess``; the export CLI
   reads it, as eve_tpu's does, to give the artifact uint8 frames;
-- ``UNIMPLEMENTED_KEYS`` (the sequence and model meshes, multi-host): they
+- ``UNIMPLEMENTED_KEYS`` (the sequence and model meshes, Slice J): they
   raise ``NotImplementedError`` when set to anything but their default, so
   a run never silently differs from the one its config describes.
+
+The data axis and multi-host start-up are read: ``tpu_num_devices``,
+``serve_num_devices``, ``tpu_multihost``, ``tpu_coordinator_address``,
+``tpu_num_processes`` (hosts) and ``tpu_process_id`` (this host's index),
+with eve_tpu's meanings and defaults (``eve_tpu_torch.parallel.mesh``).
 
 ``tpu_remat`` takes eve_tpu's values: 'none', 'eye', 'refine', 'all', or a
 boolean or its command-line spelling ('all' or 'none'); anything else
@@ -48,16 +53,15 @@ logger = logging.getLogger(__name__)
 # here for good: the port always launches its kernels on a CUDA tensor.
 DEFERRED_KEYS = frozenset((
     'note', 'prefetch_buffer_size',
-    'tpu_compile_cache_dir', 'tpu_coordinator_address', 'tpu_num_processes',
-    'tpu_process_id', 'tpu_use_pallas', 'use_native_framepack',
+    'tpu_compile_cache_dir', 'tpu_use_pallas', 'use_native_framepack',
 ))
 
-# Options of later slices, with eve_tpu's defaults: any other value raises
-# (NotImplementedError) instead of being ignored.
+# Options of Slice J (the ``seq`` and ``model`` mesh axes), with eve_tpu's
+# defaults: any other value raises (NotImplementedError) instead of being
+# ignored.
 UNIMPLEMENTED_KEYS = {
     'tpu_sequence_shards': 1,
     'tpu_model_parallelism': 1,
-    'tpu_multihost': False,
 }
 
 _REMAT_MODES = ('none', 'eye', 'refine', 'all')
@@ -121,10 +125,19 @@ class Config:
     codalab_eval_batch_size = 128
     codalab_eval_data_workers = 1
 
-    # Devices of the data-parallel mesh; 0 = all. The port runs one device:
-    # training and the eval entry points raise above 1 (multi-GPU is a
-    # later slice).
+    # Devices of the data-parallel mesh; 0 = all. Training runs one worker
+    # process a device (cli/train.py starts them); evaluation replicates
+    # the model over the devices in one process.
     tpu_num_devices = 0
+
+    # Multi-host training (parallel/mesh.py initialize_multihost): the
+    # coordinator is host 0's 'address:port', tpu_num_processes counts the
+    # hosts and tpu_process_id is this host's index; every host starts its
+    # own workers, one a device.
+    tpu_multihost = False
+    tpu_coordinator_address = ''
+    tpu_num_processes = 0
+    tpu_process_id = -1
 
     # Run directory to load weights from, or to resume training
     resume_from = ''
@@ -366,8 +379,9 @@ class Config:
             if key in UNIMPLEMENTED_KEYS:
                 if value != UNIMPLEMENTED_KEYS[key]:
                     raise NotImplementedError(
-                        '%s=%r: the port implements only %r so far; see '
-                        'ROADMAP.md' % (key, value, UNIMPLEMENTED_KEYS[key]))
+                        '%s=%r: the port implements only %r so far; the '
+                        'seq and model mesh axes are Slice J (ROADMAP.md)'
+                        % (key, value, UNIMPLEMENTED_KEYS[key]))
                 continue
             if not hasattr(type(self), key):
                 raise ValueError('Unknown configuration key: ' + key)

@@ -6,7 +6,14 @@ The counterpart of ``eve_tpu/data/loader.py``:
 - ``DataLoader`` is eve_tpu's thread-pool loader with a bounded ordered
   prefetch window and the stateless ``(seed, epoch)`` numpy shuffle, so
   for the same seed and epoch the order is eve_tpu's exactly, and
-  ``fast_forward`` puts a resumed run where the interrupted one stood;
+  ``fast_forward`` puts a resumed run where the interrupted one stood.
+  With ``shard=(index, count)`` it reads only rows ``[index * b / count,
+  (index + 1) * b / count)`` of each batch of ``b = batch_size`` clips of
+  that same order: the clips one data-parallel rank trains on. So the
+  ranks of a world together read the one-loader order clip for clip, and
+  none shuffles a slice of its own. A ragged final batch fills a rank's
+  missing rows with the batch's last clip (``shard_rows`` says how many
+  are real);
 - ``DevicePrefetcher`` takes the place of eve_tpu's: a producer thread
   stages each batch in pinned host memory and copies it with
   ``non_blocking`` copies on a side stream, and records an event that the
@@ -92,13 +99,24 @@ class DataLoader:
     """Ordered, thread-parallel batch loader with bounded prefetch.
 
     ``indices`` restricts iteration to a subset of the dataset (the
-    live-validation subset).
+    live-validation subset). ``shard=(index, count)`` yields only one
+    rank's rows of each batch (see the module docstring); ``batch_size``
+    stays the whole batch's, so lengths and ``fast_forward`` count whole
+    batches.
     """
 
     def __init__(self, dataset, batch_size, shuffle=False, drop_last=False,
-                 num_workers=4, seed=0, prefetch=2, indices=None):
+                 num_workers=4, seed=0, prefetch=2, indices=None,
+                 shard=None):
         self.dataset = dataset
         self.batch_size = batch_size
+        if shard is not None:
+            index, count = shard
+            if not 0 <= index < count or batch_size % count:
+                raise ValueError('shard %r of a batch of %d clips: the batch '
+                                 'must divide by the count'
+                                 % (shard, batch_size))
+        self.shard = shard
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = max(0, num_workers)
@@ -145,8 +163,27 @@ class DataLoader:
             chunk = order[i:i + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 continue
+            if self.shard is not None:
+                start, stop = self._shard_bounds()
+                chunk = np.concatenate(
+                    [chunk, np.repeat(chunk[-1:], self.batch_size -
+                                      len(chunk))])[start:stop]
             batches.append(chunk)
         return batches
+
+    def _shard_bounds(self):
+        index, count = self.shard
+        per = self.batch_size // count
+        return index * per, (index + 1) * per
+
+    def shard_rows(self, batch_index):
+        """How many of this rank's rows of batch ``batch_index`` (of an
+        epoch, from 0) are real clips; the rest repeat the last clip of a
+        ragged final batch."""
+        start, stop = self._shard_bounds() if self.shard is not None else (
+            0, self.batch_size)
+        first = batch_index * self.batch_size + start
+        return max(0, min(stop - start, self.num_entries - first))
 
     def __iter__(self):
         batches = self.index_batches()

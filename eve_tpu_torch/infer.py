@@ -8,8 +8,9 @@ released reference weights, and an iterator that runs the model under
 ``torch.inference_mode`` and yields numpy dicts.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``.
-One device only: ``tpu_num_devices`` above 1 and ``iterator(mesh=...)``
-raise (multi-GPU evaluation is a later slice, ROADMAP.md).
+``iterator(mesh=...)`` evaluates data-parallel over a
+``parallel.mesh.DataMesh`` in this process: the model is replicated to
+each device and every batch split into equal row slices, one a device.
 """
 
 import logging
@@ -21,6 +22,7 @@ from eve_tpu_torch.cli import common
 from eve_tpu_torch.data.dataset import EVESequencesBase
 from eve_tpu_torch.data.loader import DataLoader, split_host_batch
 from eve_tpu_torch.models import eve as eve_lib
+from eve_tpu_torch.parallel import mesh as mesh_lib
 from eve_tpu_torch.utils import checkpoint, convert, load_model
 
 logger = logging.getLogger(__name__)
@@ -81,11 +83,6 @@ def model_setup(config, require_weights=False, device='cuda',
     from ``utils.load_model``; ``require_weights=True`` raises unless every
     enabled submodule found its file, instead of running random weights.
     """
-    if config.tpu_num_devices > 1:
-        raise NotImplementedError(
-            'tpu_num_devices=%d: the port evaluates on one device; '
-            'multi-GPU evaluation is a later slice (ROADMAP.md)'
-            % config.tpu_num_devices)
     spec = eve_lib.EveSpec.from_config(config)
     model = eve_lib.init_model(spec, torch.Generator().manual_seed(0),
                                device)
@@ -132,29 +129,53 @@ def iterator(model, dataloader, create_images=True, streaming=False,
     arrays that were copied to the device come too (nothing is copied
     back). The output ``timestamps`` are the host's int64 nanoseconds. A
     ragged final batch runs at its own size.
+
+    ``mesh``: a ``DataMesh`` (or a device count) evaluates data-parallel,
+    eve_tpu's ``iterator(mesh=)``: the model is replicated to each device,
+    each batch split into equal contiguous row slices, every slice's
+    forward launched on its device before any output is read, and the
+    outputs joined in row order (0-dim ones averaged). The loader's
+    ``batch_size`` must divide by the mesh; a ragged final batch is padded
+    with copies of its last clip, run, and cut. Not with ``streaming``.
     """
-    if mesh is not None:
-        raise NotImplementedError('multi-GPU evaluation (mesh=) is a later '
-                                  'slice of the port (ROADMAP.md)')
     device = next(model.parameters()).device
+    mesh = mesh_lib.as_mesh(mesh, device)
+    replicas = full = None
+    if mesh is not None:
+        if streaming:
+            raise ValueError('mesh evaluation is batch-parallel; streaming '
+                             'inference runs one clip (batch_size=1)')
+        full = getattr(dataloader, 'batch_size', 0) or 0
+        if not full:
+            raise ValueError(
+                'mesh evaluation requires the dataloader to expose a '
+                'positive batch_size attribute (needed to pad ragged final '
+                'batches to a shardable shape)')
+        if full % mesh.size:
+            raise ValueError('eval batch_size=%d must divide by the '
+                             '%d-device %r mesh axis'
+                             % (full, mesh.size, mesh.axis_names[0]))
+        replicas = mesh_lib.replicate(mesh, model)
     states = None
     for current_step, batch in enumerate(dataloader):
         tensors, host_extras = split_host_batch(batch)
         B = next(iter(tensors.values())).shape[0]
         with torch.inference_mode():
-            device_batch = {k: v.to(device) for k, v in tensors.items()}
-            if streaming:
+            if mesh is not None:
+                outputs = _mesh_forward(mesh, replicas, tensors, B, full,
+                                        create_images)
+            elif streaming:
                 if states is None:
                     if B != 1:
                         raise ValueError('streaming inference runs one clip '
                                          'a batch, got %d' % B)
                     states = eve_lib.init_stream_state(model.spec, B, device)
-                outputs = model(device_batch, output_predictions=True,
+                outputs = model(_to(tensors, device), output_predictions=True,
                                 create_images=create_images,
                                 initial_states=states, return_states=True)
                 states = outputs.pop('states')
             else:
-                outputs = model(device_batch, output_predictions=True,
+                outputs = model(_to(tensors, device), output_predictions=True,
                                 create_images=create_images)
             outputs_np = {k: v.cpu().numpy() for k, v in outputs.items()}
         inputs_np = ({k: v.numpy() for k, v in tensors.items()}
@@ -163,3 +184,23 @@ def iterator(model, dataloader, create_images=True, streaming=False,
         if 'timestamps_ns' in host_extras:
             outputs_np['timestamps'] = host_extras['timestamps_ns']
         yield current_step, inputs_np, outputs_np
+
+
+def _to(tensors, device):
+    return {k: v.to(device) for k, v in tensors.items()}
+
+
+def _mesh_forward(mesh, replicas, tensors, rows, full, create_images):
+    """One batch over the mesh: pad to ``full`` rows with the last clip,
+    launch every slice's forward, then join the outputs and cut the pad."""
+    if rows < full:
+        tensors = {k: torch.cat([v, v[-1:].expand(full - rows,
+                                                  *v.shape[1:])])
+                   for k, v in tensors.items()}
+    parts = [replica(part, output_predictions=True,
+                     create_images=create_images)
+             for replica, part in zip(replicas,
+                                      mesh_lib.shard_batch(mesh, tensors))]
+    out = mesh_lib.gather_rows(parts, full // mesh.size)
+    return {k: v[:rows] if v.ndim >= 1 and v.shape[0] == full else v
+            for k, v in out.items()}

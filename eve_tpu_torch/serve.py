@@ -36,9 +36,21 @@ or device-resident), with the same contract:
   states from the artifact's own state types); a non-streaming one refuses
   sessions.
 
+- ``mesh=`` (a ``parallel.mesh.DataMesh``, or a device count) serves
+  data-parallel across devices in this process, eve_tpu's ``mesh=``: the
+  parameters are replicated to each device, and each padded dispatch
+  splits its ``max_batch`` slots into equal contiguous slices, one a
+  device (``max_batch`` must divide by the mesh), whose forwards are all
+  launched before any output is read. With ``device_resident`` a session's
+  state stays on the device of the slot its last chunk ran in; when its
+  next chunk lands in a slot of another device the state is copied there
+  (eve_tpu replicates it instead). The slots compute the same function
+  whatever device they lie on, so a session's results do not depend on
+  its slot. Not with ``artifact=`` (eve_tpu's ``ValueError``).
+
 PyTorch runs eagerly, so there is no per-signature compile cache;
 ``max_signatures`` still bounds the distinct input shapes a client can
-send. Data-parallel meshes are a later slice of the port.
+send.
 
 The HTTP front end (``make_http_server``) is stdlib-only with numpy
 ``.npz`` bodies, the same protocol as eve_tpu's.
@@ -60,6 +72,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from eve_tpu_torch.parallel import mesh as mesh_lib
 from eve_tpu_torch.utils.tensors import batch_to_tensors, tree_map
 
 logger = logging.getLogger(__name__)
@@ -138,14 +151,29 @@ class ServingEngine:
         artifact exported for ``device``'s type, served in place of
         ``spec`` and ``params``; it fixes ``max_batch`` and the one input
         signature.
+
+        ``mesh``: a ``DataMesh`` or a device count (``make_mesh(n)`` on
+        the cards, n replicas of ``device`` elsewhere) to serve
+        data-parallel over; ``device`` is then the mesh's first device.
         """
         if device_resident and artifact is not None:
             raise ValueError(
                 'device_resident serving needs the spec+params path '
                 '(AOT artifacts fix their own input layout)')
+        mesh = mesh_lib.as_mesh(mesh, device)
         if mesh is not None:
-            raise NotImplementedError(
-                'mesh= serving is a later slice of the port; see ROADMAP.md')
+            if artifact is not None:
+                raise ValueError(
+                    'mesh serving needs spec+params; AOT artifacts are '
+                    'compiled for a single device')
+            if int(max_batch) % mesh.size:
+                raise ValueError(
+                    'max_batch=%d must divide by the %d-device %r mesh axis '
+                    '(every dispatch pads to max_batch, so each device '
+                    'takes an equal slot count)'
+                    % (int(max_batch), mesh.size, mesh.axis_names[0]))
+            device = mesh.devices[0]
+        self.mesh = mesh
         if artifact is None:
             if spec is None or params is None:
                 raise ValueError(
@@ -170,6 +198,12 @@ class ServingEngine:
                 spec, {k: torch.as_tensor(v) for k, v in params.items()},
                 self.device)
             zero = eve_lib.init_stream_state(spec, 1, self.device)
+            # The devices of the slot slices and their models: one slice
+            # of every slot without a mesh.
+            self._slice_devices = (mesh.devices if mesh is not None
+                                   else (self.device,))
+            self._replicas = (mesh_lib.replicate(mesh, self._model)
+                              if mesh is not None else [self._model])
         else:
             from eve_tpu_torch.export import ExportedModel, load_exported
             self._artifact = (artifact if isinstance(artifact, ExportedModel)
@@ -186,6 +220,8 @@ class ServingEngine:
                 (k, shape[1:], dtype)
                 for k, shape, dtype in self._artifact.input_signature))
             zero = self._artifact.zero_state(1)
+            self._slice_devices = (self.device,)
+            self._replicas = [self._artifact]
         self.max_batch = int(max_batch)
         self.max_delay_s = float(max_delay_ms) / 1e3
         self.served_outputs = (tuple(served_outputs)
@@ -209,8 +245,12 @@ class ServingEngine:
         self._sessions: Dict[str, Session] = {}
         self._sessions_lock = threading.Lock()
         if self.device_resident:
-            # Made once, on the device; every session starts from it.
+            # Made once, on the device; every session starts from it (a
+            # copy of it on each other device of the mesh).
             self._zero_state = zero
+            self._zero_states = {
+                d: tree_map(lambda t, d=d: t.to(d), zero)
+                for d in self._slice_devices}
         else:
             self._state_dtypes = tree_map(lambda t: t.dtype, zero)
             self._zero_state = tree_map(lambda t: t.float().cpu().numpy(),
@@ -542,24 +582,50 @@ class ServingEngine:
                     % self.max_signatures)
             self._signatures.add(signature)
 
-    def _forward(self, batch, states):
-        """One padded forward of device tensors: ``(served outputs on the
-        host, new states on the device)``."""
+    def _forward(self, model, batch, states):
+        """One forward of a slice's device tensors on ``model`` (a replica
+        or the artifact): ``(served outputs and new states, on the
+        device)``; nothing is copied back here."""
         if self._artifact is None:
-            out = self._model(batch, output_predictions=True,
-                              initial_states=states, return_states=True)
+            out = model(batch, output_predictions=True,
+                        initial_states=states, return_states=True)
         elif self._artifact.streaming:
-            out = self._artifact(batch, states)
+            out = model(batch, states)
         else:
-            out = dict(self._artifact(batch), states=states)
+            out = dict(model(batch), states=states)
         states_out = out.pop('states')
         if self.served_outputs is not None:
             out = {k: out[k] for k in self.served_outputs if k in out}
-        return {k: v.cpu().numpy() for k, v in out.items()}, states_out
+        return out, states_out
+
+    def _slices(self):
+        """``(device, model, first slot, end slot)`` of each slice of the
+        ``max_batch`` slots."""
+        bounds = mesh_lib.row_slices(self.max_batch,
+                                     len(self._slice_devices))
+        return [(d, m, a, b) for d, m, (a, b) in
+                zip(self._slice_devices, self._replicas, bounds)]
+
+    def _run_slices(self, make_inputs):
+        """Launch every slice's forward (``make_inputs(device, a, b)`` gives
+        its batch and states), then read the served outputs back to the
+        host in slot order. Returns ``(host outputs, [(slots, device
+        states)])``."""
+        launched = []
+        with torch.inference_mode():
+            for device, model, a, b in self._slices():
+                out, states = self._forward(model, *make_inputs(device, a, b))
+                launched.append((range(a, b), out, states))
+            host = mesh_lib.gather_rows(
+                [{k: v.cpu().numpy() for k, v in out.items()}
+                 for _, out, _ in launched],
+                self.max_batch // len(launched))
+        return host, [(slots, states) for slots, _, states in launched]
 
     def _run_host(self, reqs, slot_states, pad):
-        """The default mode: stack on the host, copy in, copy every output
-        and state out. Returns ``(host outputs, slot -> new state)``."""
+        """The default mode: stack on the host, copy each slice in, copy
+        every output and state out. Returns ``(host outputs, slot -> new
+        state)``."""
         batch = {}
         for k in reqs[0].inputs:
             stacked = np.stack([_host_array(r.inputs[k]) for r in reqs])
@@ -569,32 +635,52 @@ class ServingEngine:
             batch[k] = stacked
         states = tree_map(lambda *xs: np.concatenate(xs, axis=0),
                           *slot_states)
-        device = self.device
-        with torch.inference_mode():
-            host, states_out = self._forward(
-                batch_to_tensors(batch, device),
-                tree_map(lambda x, dtype: torch.from_numpy(x).to(device)
-                         .to(dtype), states, self._state_dtypes))
-            new_states = tree_map(lambda t: t.float().cpu().numpy(),
-                                  states_out)
+
+        def make_inputs(device, a, b):
+            return (batch_to_tensors({k: v[a:b] for k, v in batch.items()},
+                                     device),
+                    tree_map(lambda x, dtype: torch.from_numpy(x[a:b])
+                             .to(device).to(dtype), states,
+                             self._state_dtypes))
+
+        host, parts = self._run_slices(make_inputs)
+        new_states = tree_map(
+            lambda *xs: np.concatenate(xs, axis=0),
+            *[tree_map(lambda t: t.float().cpu().numpy(), states)
+              for _, states in parts])
         return host, lambda i: tree_map(lambda x: np.copy(x[i:i + 1]),
                                         new_states)
 
     def _run_resident(self, reqs, slot_states, pad):
-        """``device_resident``: stack the slots and join the states on the
-        device; only the served outputs come back. Returns ``(host outputs,
-        slot -> new state)``."""
-        with torch.inference_mode():
-            slots = [batch_to_tensors(r.inputs, self.device)
-                     for r in reqs]
-            slots += [slots[-1]] * pad
+        """``device_resident``: stack each slice's slots and join their
+        states on the slice's device (a state on another device is copied
+        there); only the served outputs come back. Returns ``(host
+        outputs, slot -> new state)``."""
+        slot_inputs = [r.inputs for r in reqs]
+        slot_inputs += [slot_inputs[-1]] * pad
+
+        def make_inputs(device, a, b):
+            # Each distinct request once: the padding slots repeat the
+            # last one's tensors.
+            copied, slots = {}, []
+            for inputs in slot_inputs[a:b]:
+                if id(inputs) not in copied:
+                    copied[id(inputs)] = batch_to_tensors(inputs, device)
+                slots.append(copied[id(inputs)])
             batch = {k: torch.stack([s[k] for s in slots])
                      for k in slots[0]}
-            host, states_out = self._forward(
-                batch, tree_map(lambda *xs: torch.cat(xs, dim=0),
-                                *slot_states))
-        return host, lambda i: tree_map(lambda t: t[i:i + 1].clone(),
-                                        states_out)
+            states = tree_map(lambda *xs: torch.cat(
+                [x.to(device) for x in xs], dim=0), *slot_states[a:b])
+            return batch, states
+
+        host, parts = self._run_slices(make_inputs)
+        owner = {i: (states, i - slots.start)
+                 for slots, states in parts for i in slots}
+
+        def slot_state(i):
+            states, j = owner[i]
+            return tree_map(lambda t: t[j:j + 1].clone(), states)
+        return host, slot_state
 
     def _dispatch(self, reqs: List[_Request]):
         # A session closed between submit() and here fails its chunk instead
@@ -622,8 +708,16 @@ class ServingEngine:
         self._check_signature(reqs[0].signature)
         n = len(reqs)
         pad = self.max_batch - n
-        slot_states = [s.state if s else self._zero_state for s in sessions]
-        slot_states += [self._zero_state] * pad
+        if self.device_resident:
+            # A fresh or padding slot starts from the zero state on its own
+            # slice's device.
+            zeros = [self._zero_states[d] for d, _, a, b in self._slices()
+                     for _ in range(a, b)]
+        else:
+            zeros = [self._zero_state] * self.max_batch
+        slot_states = [s.state if s else zeros[i]
+                       for i, s in enumerate(sessions)]
+        slot_states += zeros[n:]
         run = self._run_resident if self.device_resident else self._run_host
         host, slot_state = run(reqs, slot_states, pad)
 

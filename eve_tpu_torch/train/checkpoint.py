@@ -27,6 +27,12 @@ Writes are atomic (a ``.tmp`` directory, then a rename), the newest
 ``keep_n`` are kept, and ``save_at_step(wait=False)`` hands the file write
 to a background thread after a synchronous host snapshot, so the written
 bytes are exactly this step's state.
+
+In a data-parallel run only rank 0 saves (``harness.save_checkpoint``):
+every rank holds the same replicated state, so the snapshot is a local
+copy (``parallel.mesh.gather_to_host``). On resume rank 0 reads, and
+``snapshot``'s optimizer part goes to the other ranks
+(``load_optimizer_snapshot``).
 """
 
 import logging
@@ -37,6 +43,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from eve_tpu_torch.parallel.mesh import gather_to_host
 from eve_tpu_torch.utils import convert
 from eve_tpu_torch.utils.checkpoint import (
     available_checkpoints, load_params, unflatten_tree)
@@ -64,28 +71,30 @@ def flatten_tree(tree, prefix=()):
     return out
 
 
-def _host(tensor):
-    return tensor.detach().to('cpu', copy=True)
-
-
 def snapshot(state):
     """The state's parameters, optimizer state and partial gradients as
     CPU tensors the caller owns (a synchronous copy off the device)."""
     model, optimizer = state.model, state.optimizer
     names = {p: n for n, p in model.named_parameters()}
-    params = {k: _host(v) for k, v in model.state_dict().items()}
+    params = gather_to_host(model.state_dict())
     opt = {}
     sd = optimizer.state_dict()
     ordered = [p for g in optimizer.param_groups for p in g['params']]
     for index, values in sd['state'].items():
         name = names[ordered[index]]
         for k, v in values.items():
-            opt['state/%s/%s' % (name, k)] = _host(torch.as_tensor(v))
+            opt['state/%s/%s' % (name, k)] = gather_to_host(
+                torch.as_tensor(v))
     if state.step % state.accumulation_steps:
         for p in ordered:
             if p.grad is not None:
-                opt['grad/' + names[p]] = _host(p.grad)
+                opt['grad/' + names[p]] = gather_to_host(p.grad)
     return params, opt
+
+
+def load_optimizer_snapshot(state, opt):
+    """Restore the optimizer part of ``snapshot`` into ``state``."""
+    _load_optimizer(state, unflatten_tree(opt))
 
 
 class CheckpointManager:

@@ -22,13 +22,15 @@ logger = logging.getLogger(__name__)
 
 class GoogleSheetLogger:
 
-    def __init__(self, config, identifier, resuming=False):
+    def __init__(self, config, identifier, resuming=False, enabled=True):
+        """``enabled=False`` (every data-parallel rank but 0) writes
+        nothing."""
         self.config = config
         self.identifier = identifier
         self.ready = False
         self._sheet = None
         try:
-            if not config.gsheet_secrets_json_file or \
+            if not enabled or not config.gsheet_secrets_json_file or \
                     not config.gsheet_workbook_key:
                 return
             import gspread  # noqa: F401

@@ -1,9 +1,12 @@
-"""Training harness on one device: CLI init, datasets, run setup, main loop.
+"""Training harness: CLI init, datasets, run setup, main loop.
 
-The single-device part of ``eve_tpu/train/harness.py``:
+The counterpart of ``eve_tpu/train/harness.py``:
 
 - ``script_init_common``: the ``--flag`` CLI over every config key, JSON
   files then flags, ``np.random.seed(0)``;
+- ``init_process_group``: joins the data-parallel process group when the
+  process is one rank of several (``tpu_multihost``, or a torchrun-style
+  environment, which ``cli.train``'s launcher also sets for its workers);
 - ``init_datasets`` over eve_tpu's spec tuples ``(tag, dataset_class,
   path, stimuli, cameras)``: it arms the SIGTERM handler first, builds one
   shuffled loader per training source and a ``SubsetLoader`` of
@@ -30,8 +33,27 @@ The single-device part of ``eve_tpu/train/harness.py``:
 - ``do_final_full_test`` and ``cleanup_and_quit``.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
-TF32 is off. The mesh and multi-host are later slices (ROADMAP.md): this
-is one process, so a preemption needs no agreement between hosts.
+TF32 is off.
+
+Data parallelism runs one process a rank (``eve_tpu_torch.parallel.mesh``):
+
+- every rank reads only its rows of each global batch, in the one-loader
+  ``(seed, epoch)`` order (``DataLoader(shard=...)``), and draws the
+  global batch's kappas from the step's generator and keeps its rows, so
+  a world of any size trains on eve_tpu's batches and kappas; across hosts
+  each host first takes its ``local_data_slice`` of the clip list;
+- the step averages the gradients and the logged scalars over the ranks
+  (``train/step.py``); the parameters start from rank 0's;
+- the run's identifier, the auto-resume decision, a non-reproducible
+  training seed and a resumed optimizer state are rank 0's, broadcast;
+- only rank 0 writes: the config files, ``src.zip``, TensorBoard,
+  ``messages.log``, Google Sheets rows and checkpoints;
+- the preemption flag is agreed every ``_PREEMPTION_SYNC`` steps and eval
+  batches (an all-gather over the host group): if any rank saw SIGTERM,
+  every rank checkpoints the same step and exits 143;
+- live validation and the final full test split each batch over the ranks
+  (a ragged final batch padded with zero-validity clips) and average the
+  batch's scalars over them, so the logged numbers equal one device's.
 """
 
 import glob
@@ -50,6 +72,8 @@ import torch
 from eve_tpu_torch.cli import common
 from eve_tpu_torch.data.loader import DataLoader, DevicePrefetcher, to_device
 from eve_tpu_torch.models import eve as eve_lib
+from eve_tpu_torch.parallel import mesh as mesh_lib
+from eve_tpu_torch.train import checkpoint as checkpoint_lib
 from eve_tpu_torch.train import step as step_lib
 from eve_tpu_torch.train.checkpoint import CheckpointManager
 from eve_tpu_torch.train.gsheet import GoogleSheetLogger
@@ -61,9 +85,10 @@ logger = logging.getLogger(__name__)
 
 # Keys that say how a process was launched, not what it trains: left out
 # of the run's identity hash, so a restart with the same argv plus
-# ``--auto-resume yes`` finds the run it continues. (eve_tpu also leaves
-# out its per-host wiring keys, which the port's config does not hold.)
-NON_IDENTITY_KEYS = ('resume_from', 'auto_resume')
+# ``--auto-resume yes`` finds the run it continues, and the hosts of one
+# run (each with its own ``tpu_process_id``) hash alike.
+NON_IDENTITY_KEYS = ('resume_from', 'auto_resume', 'tpu_process_id',
+                     'tpu_coordinator_address')
 # Exit code of a preempted run: 128 + SIGTERM.
 PREEMPTED_EXIT_CODE = 143
 
@@ -76,17 +101,46 @@ def script_init_common(argv=None, description='Train a gaze estimation model.'):
     return config, args
 
 
+def init_process_group(config, device, backend=None):
+    """Join the data-parallel process group, if this process is a rank.
+
+    ``tpu_multihost`` starts the group from the coordinator keys (eve_tpu's
+    ``initialize_multihost`` call in its ``script_init_common``; here it
+    runs in each worker, after ``cli.train``'s launcher has started them);
+    a torchrun-style environment starts it from ``env://``; otherwise the
+    process trains alone and nothing happens. ``backend`` is the device
+    group's: NCCL for a CUDA device, gloo for the CPU. Gloo with CUDA
+    tensors (the two-ranks-on-one-card check) must be asked for.
+    """
+    device = torch.device(device)
+    if not (config.tpu_multihost or mesh_lib.launched_by_torchrun()):
+        return
+    if backend is None:
+        backend = 'nccl' if device.type == 'cuda' else 'gloo'
+    if backend == 'gloo' and device.type == 'cuda':
+        logger.warning('device group over gloo with CUDA tensors: every '
+                       'all-reduce goes through the host (ranks that share '
+                       'one card, a check of the data-parallel path)')
+    mesh_lib.initialize_multihost(
+        config.tpu_coordinator_address or None,
+        config.tpu_num_processes or None, config.tpu_process_id,
+        backend=backend)
+    logger.info('> Data parallel: rank %d of %d on %s',
+                mesh_lib.process_index(), mesh_lib.process_count(), device)
+
+
 def training_seed(config):
     """Seed of the run-varying streams (shuffle order, kappa draws).
 
     0 under ``fully_reproducible`` (reruns are bit-identical on the CPU),
-    else an entropy draw. Kept on the config object, so the loader and the
-    training loop of one run agree.
+    else an entropy draw, rank 0's on every rank. Kept on the config
+    object, so the loader and the training loop of one run agree.
     """
     seed = getattr(config, '_training_seed', None)
     if seed is None:
         seed = (0 if config.fully_reproducible
                 else int.from_bytes(os.urandom(4), 'little'))
+        seed = mesh_lib.broadcast_object(seed)
         config._training_seed = seed
         logger.info('Training seed: %d (fully_reproducible=%s)', seed,
                     config.fully_reproducible)
@@ -99,6 +153,28 @@ def kappa_generator(seed, step, source=None):
     entropy = (seed, step) if source is None else (seed, step, source)
     mixed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     return torch.Generator().manual_seed(int(mixed[0]))
+
+
+def with_rank_kappas(spec, batch, generator):
+    """``batch`` with this rank's rows of the global batch's kappas.
+
+    The global batch's (B x world, 2) kappas are drawn from ``generator``
+    as one process would draw them, and the rank keeps its rows, so every
+    world size trains on the same kappas. Without a group, or without the
+    offset augmentation, the batch is returned as it is (the forward draws
+    from the generator itself).
+    """
+    world = mesh_lib.process_count()
+    if world == 1 or not spec.refine_net_do_offset_augmentation:
+        return batch
+    B, T = batch['left_eye_patch'].shape[:2]
+    rank = mesh_lib.process_index()
+    out = dict(batch)
+    for side, kappa in zip(('left', 'right'),
+                           eve_lib.draw_kappas(spec, B * world, generator)):
+        out[side + '_kappa_fake'] = kappa[rank * B:(rank + 1) * B].to(
+            batch['left_eye_patch'].device)[:, None, :].expand(B, T, 2)
+    return out
 
 
 def init_datasets(config, train_specs, test_specs):
@@ -120,14 +196,29 @@ def init_datasets(config, train_specs, test_specs):
         raise ValueError('batch_size %d must divide by '
                          'gradient_accumulation_steps %d'
                          % (config.batch_size, accum))
+    # Data parallelism: each host takes its slice of the clip list, and
+    # each of its ranks its rows of the host's batches.
+    hosts, workers = mesh_lib.host_count(), mesh_lib.local_world_size()
+    host_batch = config.batch_size // accum // hosts
+    if (config.batch_size // accum) % hosts or host_batch % workers:
+        raise ValueError(
+            'batch_size %d must divide by %d hosts x %d workers a host x '
+            '%d accumulation steps' % (config.batch_size, hosts, workers,
+                                       accum))
+    shard = (mesh_lib.local_rank(), workers) if workers > 1 else None
     train_data = {}
     for tag, dataset_class, path, stimuli, cameras in train_specs:
         dataset = dataset_class(path, config=config, cameras_to_use=cameras,
                                 types_of_stimuli=stimuli)
-        loader = DataLoader(dataset, batch_size=config.batch_size // accum,
+        if hosts > 1:
+            dataset = HostSlice(dataset, mesh_lib.local_data_slice(
+                len(dataset)))
+            logger.info('> Host %d/%d takes %d clips of %s',
+                        mesh_lib.host_index(), hosts, len(dataset), tag)
+        loader = DataLoader(dataset, batch_size=host_batch,
                             shuffle=True, drop_last=True,
                             num_workers=config.train_data_workers,
-                            seed=training_seed(config))
+                            seed=training_seed(config), shard=shard)
         train_data[tag] = {'dataset': dataset, 'dataloader': loader}
         logger.info('> Ready to use training dataset: %s (%d clips)',
                     tag, len(dataset))
@@ -156,12 +247,37 @@ def init_datasets(config, train_specs, test_specs):
     return train_data, test_data
 
 
+class HostSlice:
+    """The clips ``indices`` of a dataset: one host's share of it."""
+
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = list(indices)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.dataset[self.indices[i]]
+
+
 def SubsetLoader(dataset, indices, batch_size, num_workers=0):
     """A loader over ``dataset`` (or its ``indices``) in order, the last
-    batch ragged: live validation and the final full test."""
+    batch ragged: live validation and the final full test. With several
+    ranks each reads its rows of every batch, when the batch divides by
+    the ranks; otherwise every rank evaluates whole batches (eve_tpu's
+    replicated fallback)."""
+    world = mesh_lib.process_count()
+    shard = None
+    if world > 1:
+        if batch_size % world == 0:
+            shard = (mesh_lib.process_index(), world)
+        else:
+            logger.info('eval batch %d does not divide by %d ranks: every '
+                        'rank evaluates it whole', batch_size, world)
     return DataLoader(dataset, batch_size=batch_size, shuffle=False,
                       drop_last=False, num_workers=num_workers,
-                      indices=indices)
+                      indices=indices, shard=shard)
 
 
 def config_identity_hash(config):
@@ -226,24 +342,35 @@ def bootstrap_pretrained(config, model, pretrained_dir=None):
 
 
 class Experiment:
-    """One training run: its directory, logs, model state and checkpoints."""
+    """One training run (one rank's share of it): its directory, logs,
+    model state and checkpoints."""
 
     def __init__(self, config, output_dir_base='./outputs', device='cuda'):
         self.config = config
         self.spec = eve_lib.EveSpec.from_config(config)
         self.device = torch.device(device)
-        if config.tpu_num_devices > 1:
-            raise NotImplementedError(
-                'tpu_num_devices=%d: the port trains on one device; '
-                'multi-GPU training is a later slice (ROADMAP.md)'
-                % config.tpu_num_devices)
-        if config.tpu_num_devices == 0 and torch.cuda.device_count() > 1:
+        alone = not mesh_lib.in_process_group()
+        self.primary = mesh_lib.is_primary_process()
+        if alone and config.tpu_num_devices > 1:
+            raise ValueError(
+                'tpu_num_devices=%d: this process is not in a process '
+                'group, so it would train on one device; start the run '
+                'through eve_tpu_torch.cli.train (one worker a device) or '
+                'torchrun' % config.tpu_num_devices)
+        if alone and config.tpu_num_devices == 0 and \
+                torch.cuda.device_count() > 1:
             logger.warning('tpu_num_devices=0 (all devices): %d GPUs are '
-                           'visible, and the port trains on one (%s)',
+                           'visible, and the port trains on one (%s) in '
+                           'this process; eve_tpu_torch.cli.train starts '
+                           'one worker a device',
                            torch.cuda.device_count(), self.device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError('device %s: no CUDA card is visible (pass '
                                '--device cpu to train on the CPU)' % device)
+        if self.device.type == 'cuda' and self.device.index is not None \
+                and not alone:
+            # NCCL runs a rank's collectives on the current device.
+            torch.cuda.set_device(self.device)
         # float32 parity: cuDNN would run float32 convolutions in TF32.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -251,9 +378,12 @@ class Experiment:
         family = 'EVE' + config.identifier_suffix
         if config.auto_resume and not config.resume_from:
             # A restart with the same argv hashes the same and continues
-            # the run it replaces.
-            found = _latest_resumable_run(
+            # the run it replaces. The decision is rank 0's: checkpoints
+            # are written where rank 0 runs.
+            found = (_latest_resumable_run(
                 os.path.join(output_dir_base, family), cfg_hash)
+                if self.primary else None)
+            found = mesh_lib.broadcast_string(found or '') or None
             if found:
                 logger.info('auto_resume: continuing %s', found)
                 config.override('resume_from', found)
@@ -264,21 +394,26 @@ class Experiment:
             output_dir = config.resume_from
             self.identifier = '/'.join(output_dir.rstrip('/').split('/')[-2:])
         else:
-            self.identifier = (family + '/' + time.strftime('%y%m%d_%H%M%S')
-                               + '.' + cfg_hash)
+            # Rank 0's clock names the run on every rank.
+            self.identifier = mesh_lib.broadcast_string(
+                family + '/' + time.strftime('%y%m%d_%H%M%S') + '.' +
+                cfg_hash)
             output_dir = os.path.join(output_dir_base, self.identifier)
         self.output_dir = output_dir
-        os.makedirs(output_dir, exist_ok=True)
-        if not config.resume_from:
-            config.write_file_contents(output_dir)
-        self.tensorboard = Tensorboard(output_dir)
-        self._log_handler = logging.FileHandler(
-            os.path.join(output_dir, 'messages.log'))
-        self._log_handler.setFormatter(logging.Formatter(
-            '%(asctime)s %(levelname)s %(message)s', '%d/%m %H:%M:%S'))
-        logging.getLogger().addHandler(self._log_handler)
+        self._log_handler = None
+        if self.primary:
+            os.makedirs(output_dir, exist_ok=True)
+            if not config.resume_from:
+                config.write_file_contents(output_dir)
+            self._log_handler = logging.FileHandler(
+                os.path.join(output_dir, 'messages.log'))
+            self._log_handler.setFormatter(logging.Formatter(
+                '%(asctime)s %(levelname)s %(message)s', '%d/%m %H:%M:%S'))
+            logging.getLogger().addHandler(self._log_handler)
+        self.tensorboard = Tensorboard(output_dir if self.primary else None)
         self.gsheet_logger = GoogleSheetLogger(
-            config, self.identifier, resuming=bool(config.resume_from))
+            config, self.identifier, resuming=bool(config.resume_from),
+            enabled=self.primary)
         self.checkpoint_manager = CheckpointManager(
             output_dir, keep_n=config.checkpoints_keep_n)
         self.state = None
@@ -302,11 +437,30 @@ class Experiment:
         self.state = step_lib.create_train_state(cfg, model,
                                                  updates_per_epoch)
         if cfg.resume_from:
-            self.last_step = self.checkpoint_manager.load_last_checkpoint(
-                self.state)
+            self.last_step = self._resume()
+        if self.state.data_parallel:
+            # Every rank starts from rank 0's parameters and buffers.
+            mesh_lib.broadcast_tensors_(list(model.state_dict().values()))
         if cfg.profile_dir:
             self.tensorboard.add_graph(model)
         return self
+
+    def _resume(self):
+        """Load the newest checkpoint; returns its step. With several
+        ranks rank 0 reads it, and its step and optimizer state go to
+        every rank (its parameters follow in ``build_training``'s
+        broadcast), as eve_tpu loads and then broadcasts."""
+        if mesh_lib.process_count() == 1:
+            return self.checkpoint_manager.load_last_checkpoint(self.state)
+        payload = None
+        if self.primary:
+            step = self.checkpoint_manager.load_last_checkpoint(self.state)
+            payload = (step, checkpoint_lib.snapshot(self.state)[1])
+        step, opt = mesh_lib.broadcast_object(payload)
+        if not self.primary:
+            self.state.step = step
+            checkpoint_lib.load_optimizer_snapshot(self.state, opt)
+        return step
 
     def close(self):
         """Finish checkpoint writes; close the logs."""
@@ -314,18 +468,31 @@ class Experiment:
             self.checkpoint_manager.close()
         finally:
             self.tensorboard.close()
-            logging.getLogger().removeHandler(self._log_handler)
-            self._log_handler.close()
+            if self._log_handler is not None:
+                logging.getLogger().removeHandler(self._log_handler)
+                self._log_handler.close()
 
 
 def step_modulo(current, interval_size):
     return current % interval_size == (interval_size - 1)
 
 
+def save_checkpoint(exp, step, wait=True):
+    """Checkpoint ``exp.state`` at ``step``: rank 0 writes. Data
+    parallelism replicates the state, so no rank's copy is needed for it
+    (eve_tpu's ``gather_to_host`` is a local copy here)."""
+    if exp.primary:
+        exp.checkpoint_manager.save_at_step(step, exp.state, wait=wait)
+
+
 # Preemption: SIGTERM sets this flag, and the loop checks it after every
 # step and every eval batch: it saves a checkpoint of the completed steps
 # and exits 143, so a restart resumes exactly where the signal landed.
 _PREEMPTION = threading.Event()
+# With several ranks the flag is agreed every _PREEMPTION_SYNC steps and
+# eval batches, not every one: the all-gather blocks the host, and a
+# preemption notice comes tens of seconds before the kill.
+_PREEMPTION_SYNC = 8
 
 
 def request_preemption_checkpoint(signum=None, frame=None):
@@ -358,6 +525,27 @@ def _install_preemption_handler():
                     'request_preemption_checkpoint itself)')
 
 
+def _preemption_agreed(sync=True):
+    """Whether to act on a preemption now, agreed over the ranks.
+
+    One process: the local flag (``sync`` does not matter). Several: ranks
+    may see SIGTERM around different steps, and one exiting a step before
+    the others would leave them waiting in the next step's all-reduce. So
+    at the agreement points (``sync``, a pure function of the step or
+    batch index, the same on every rank) the flags are all-gathered over
+    the host group and any rank's preempts all at the same boundary;
+    between them this returns False even with the local flag set.
+    """
+    if mesh_lib.process_count() == 1:
+        return _PREEMPTION.is_set()
+    if not sync:
+        return False
+    if any(mesh_lib.all_gather_flags(_PREEMPTION.is_set())):
+        _PREEMPTION.set()  # a rank whose signal is still on its way
+        return True
+    return False
+
+
 def _exit_for_preemption(exp):
     """Checkpoint the completed steps and exit 143.
 
@@ -367,7 +555,7 @@ def _exit_for_preemption(exp):
     writer, so the checkpoint is whole when the process ends.
     """
     if exp.state is not None:
-        exp.checkpoint_manager.save_at_step(exp.state.step, exp.state)
+        save_checkpoint(exp, exp.state.step)
         logger.warning(
             'Preemption signal received: checkpoint saved at step %d; '
             'resume with --resume-from %s (or the same command with '
@@ -474,14 +662,17 @@ def main_loop_iterator(exp, train_data, test_data):
                 batches = {tag: next_batch(tag) for tag in tags}
                 perf_wait += time.perf_counter() - wait_start
             if multi_source:
+                generators = {tag: kappa_generator(seed, current_step, i)
+                              for i, tag in enumerate(sorted(tags))}
                 metrics = step_lib.multi_source_train_step(
-                    exp.state, batches,
-                    {tag: kappa_generator(seed, current_step, i)
-                     for i, tag in enumerate(sorted(tags))})
+                    exp.state, {tag: with_rank_kappas(exp.spec, batches[tag],
+                                                      generators[tag])
+                                for tag in tags}, generators)
             else:
+                generator = kappa_generator(seed, current_step)
                 metrics = step_lib.train_step(
-                    exp.state, batches[tag0],
-                    kappa_generator(seed, current_step))
+                    exp.state, with_rank_kappas(exp.spec, batches[tag0],
+                                                generator), generator)
             # Recorded here: live validation later in this iteration may
             # exit for a preemption, and its checkpoint counts this step.
             exp.last_epoch = current_epoch
@@ -492,7 +683,8 @@ def main_loop_iterator(exp, train_data, test_data):
                 profiler = None
 
             images = {}
-            if config.load_screen_content and step_modulo(
+            # Rank 0 draws the images, from its rows of the batch.
+            if exp.primary and config.load_screen_content and step_modulo(
                     current_step, config.tensorboard_images_every_n_steps):
                 images = compose_training_images(
                     step_lib.eval_step(exp.state.model, batches[tag0],
@@ -500,7 +692,8 @@ def main_loop_iterator(exp, train_data, test_data):
                     screen_size=tuple(config.screen_size))
             yield current_step, metrics, images
 
-            if _PREEMPTION.is_set():
+            if _preemption_agreed(
+                    sync=current_step % _PREEMPTION_SYNC == 0):
                 abort_if_nan(metrics)  # never persist NaN parameters
                 _exit_for_preemption(exp)
 
@@ -548,9 +741,8 @@ def main_loop_iterator(exp, train_data, test_data):
             if step_modulo(current_step,
                            config.checkpoints_save_every_n_steps):
                 abort_if_nan(metrics)
-                exp.checkpoint_manager.save_at_step(
-                    current_step + 1, exp.state,
-                    wait=not config.tpu_async_checkpoint)
+                save_checkpoint(exp, current_step + 1,
+                                wait=not config.tpu_async_checkpoint)
             if step_modulo(current_step, config.test_every_n_steps):
                 abort_if_nan(metrics)
                 _, for_gsheet = test_model_on_all(exp, test_data,
@@ -570,23 +762,28 @@ def main_loop_iterator(exp, train_data, test_data):
             it.close()  # releases the prefetcher's thread
 
     # The completed-step numbering of the periodic saves.
-    exp.checkpoint_manager.save_at_step(exp.state.step, exp.state)
+    save_checkpoint(exp, exp.state.step)
 
 
-def _pad_eval_batch(batch, full_size):
-    """Pad a ragged eval batch to ``full_size`` clips with zero-validity
-    copies of its last clip, so every eval batch has one shape. Every
-    0-dim output is a validity-masked batch mean, so a padded clip adds 0
-    to each; the caller weights the scalars by the padded size."""
+def _pad_eval_batch(batch, full_size, real=None):
+    """An eval batch of ``full_size`` clips whose first ``real`` (default:
+    all it has) are real: a ragged one is padded with copies of its last
+    clip, and every clip from ``real`` on gets zero validity, so every
+    eval batch has one shape.
+    Every 0-dim output is a validity-masked batch mean, so a padded clip
+    adds 0 to each; the caller weights the scalars by the padded size."""
     out = {}
     for k, v in batch.items():
         if not isinstance(v, np.ndarray):
             out[k] = v
             continue
-        fill = np.repeat(v[-1:], full_size - v.shape[0], axis=0)
-        if k.endswith('_validity'):
-            fill = np.zeros_like(fill)
-        out[k] = np.concatenate([v, fill], axis=0)
+        if real is None:
+            real = v.shape[0]
+        v = np.concatenate([v, np.repeat(v[-1:], full_size - v.shape[0],
+                                         axis=0)], axis=0)
+        if k.endswith('_validity') and real < full_size:
+            v[real:] = 0
+        out[k] = v
     return out
 
 
@@ -594,25 +791,31 @@ def test_model_on_all(exp, test_data, current_step, log_key_prefix='test'):
     """Evaluate on every validation loader: per tag, the mean of each 0-dim
     output over its clips (batch means weighted by batch size). Returns
     ``(results, row for the Google Sheet or None)``. A preemption request
-    is honoured between batches."""
+    is honoured between batches. A loader that reads one rank's rows
+    (``shard``) has its scalars averaged over the ranks."""
     final_out = {}
     for tag, data_dict in test_data.items():
         loader = data_dict['dataloader']
+        shard = getattr(loader, 'shard', None)
         totals = {}
-        for batch in loader:
-            if _PREEMPTION.is_set():
+        for index, batch in enumerate(loader):
+            if _preemption_agreed(sync=index % _PREEMPTION_SYNC == 0):
                 _exit_for_preemption(exp)
             rows = next(v for v in batch.values()
                         if isinstance(v, np.ndarray)).shape[0]
-            if rows < loader.batch_size:
-                batch = _pad_eval_batch(batch, loader.batch_size)
-                rows = loader.batch_size
+            full = loader.batch_size // (shard[1] if shard else 1)
+            real = loader.shard_rows(index) if shard else rows
+            if real < full:
+                batch = _pad_eval_batch(batch, full, real)
             device_batch, _ = to_device(batch, exp.device)
             out = step_lib.eval_step(exp.state.model, device_batch)
             keys = sorted(k for k, v in out.items() if v.ndim == 0)
-            values = torch.stack([out[k].float() for k in keys]).tolist()
-            for k, v in zip(keys, values):
-                totals[k] = totals.get(k, 0.0) + v * rows / loader.num_entries
+            stacked = torch.stack([out[k].float() for k in keys])
+            if shard:
+                mesh_lib.all_reduce_mean_([stacked])
+            for k, v in zip(keys, stacked.tolist()):
+                totals[k] = (totals.get(k, 0.0) +
+                             v * loader.batch_size / loader.num_entries)
         final_out[tag] = totals
         logger.info('%10s %s: %s', '[%s]' % tag, log_key_prefix,
                     ', '.join('%s: %.4g' % (k, totals[k])
@@ -657,9 +860,12 @@ def do_final_full_test(exp, test_data):
 
 
 def cleanup_and_quit(exp, exit_code=0):
-    """Close the run and exit with ``exit_code``. A preemption request
-    that was not honoured is cleared, so it cannot exit a later run in the
-    same process."""
+    """Close the run, leave the process group and exit with
+    ``exit_code``. A preemption request that was not honoured is cleared,
+    so it cannot exit a later run in the same process."""
     _PREEMPTION.clear()
-    exp.close()
+    try:
+        exp.close()
+    finally:
+        mesh_lib.shutdown()
     sys.exit(exit_code)

@@ -94,13 +94,16 @@ def compose_training_images(outputs, screen_size=(128, 72)):
 
 
 class Tensorboard:
-    """Step-stateful writer of one run directory."""
+    """Step-stateful writer of one run directory; with ``output_dir`` None
+    (every data-parallel rank but 0) it writes nothing."""
 
     def __init__(self, output_dir):
         self.output_dir = output_dir
         self.current_step = 0
         self._writer = None
         self._jsonl = None
+        if output_dir is None:
+            return
         try:
             from tensorboardX import SummaryWriter
         except ImportError:
@@ -118,7 +121,7 @@ class Tensorboard:
         value = float(value)
         if self._writer is not None:
             self._writer.add_scalar(tag, value, self.current_step)
-        else:
+        elif self._jsonl is not None:
             self._jsonl.write(json.dumps(
                 {'tag': tag, 'value': value, 'step': self.current_step,
                  'time': time.time()}) + '\n')
@@ -141,6 +144,8 @@ class Tensorboard:
     def add_graph(self, model):
         """The module tree as text: ``model.txt`` in the run directory (the
         counterpart of eve_tpu's jaxpr dump), mirrored into TensorBoard."""
+        if self.output_dir is None:
+            return
         text = str(model)
         with open(os.path.join(self.output_dir, 'model.txt'), 'w') as f:
             f.write(text)

@@ -18,6 +18,17 @@ scalars prefixed ``<tag>/``.
 Every 0-dim output comes back as a device tensor, with a ``nan_flag``;
 nothing here waits for the card, so the host syncs only where the caller
 reads a value (the harness: at log, checkpoint and test intervals).
+
+Data parallelism (``TrainState.data_parallel``, one process a rank of a
+``torch.distributed`` group, of any size): each rank runs the step on its
+rows of the global batch, and ``apply_update`` averages the gradients over
+the ranks in one coalesced all-reduce before the clip, once an optimizer
+update (after the last micro-step of an accumulation). Every loss is a
+mean over clips of per-clip masked means, so the average over equal
+slices is the global batch's gradient, as eve_tpu's GSPMD step computes
+it. The 0-dim outputs are averaged over the ranks as well (one small
+all-reduce a step), so every rank logs the global batch's means and
+agrees on ``nan_flag``.
 """
 
 import dataclasses
@@ -25,6 +36,7 @@ from typing import Callable
 
 import torch
 
+from eve_tpu_torch.parallel import mesh as mesh_lib
 from eve_tpu_torch.train import optim as optim_lib
 
 
@@ -38,6 +50,7 @@ class TrainState:
     clip_amount: float = 5.0
     accumulation_steps: int = 1
     step: int = 0
+    data_parallel: bool = False  # average over the process group's ranks
 
     @property
     def updates(self):
@@ -54,13 +67,20 @@ def create_train_state(config, model, updates_per_epoch):
         clip_by=(config.gradient_clip_by if config.do_gradient_clipping
                  else ''),
         clip_amount=config.gradient_clip_amount,
-        accumulation_steps=max(int(config.gradient_accumulation_steps), 1))
+        accumulation_steps=max(int(config.gradient_accumulation_steps), 1),
+        data_parallel=mesh_lib.in_process_group())
 
 
-def scalar_outputs(out):
-    """The 0-dim tensors of an output dict, detached, plus ``nan_flag``."""
+def scalar_outputs(out, data_parallel=False):
+    """The 0-dim tensors of an output dict, detached, plus ``nan_flag``;
+    with ``data_parallel`` each is the mean over the ranks."""
     scalars = {k: v.detach() for k, v in out.items()
                if isinstance(v, torch.Tensor) and v.ndim == 0}
+    if data_parallel:
+        keys = sorted(scalars)
+        stacked = torch.stack([scalars[k].float() for k in keys])
+        mesh_lib.all_reduce_mean_([stacked])
+        scalars = dict(zip(keys, stacked.unbind()))
     scalars['nan_flag'] = torch.isnan(
         torch.stack(list(scalars.values()))).any()
     return scalars
@@ -87,7 +107,7 @@ def train_step(state, batch, generator=None):
     state.step += 1
     if state.step % state.accumulation_steps == 0:
         apply_update(state)
-    return scalar_outputs(out)
+    return scalar_outputs(out, state.data_parallel)
 
 
 def accumulate_multi_source_gradients(model, batches, generators=None):
@@ -122,15 +142,17 @@ def multi_source_train_step(state, batches, generators=None):
     state.step += 1
     if state.step % state.accumulation_steps == 0:
         apply_update(state)
-    return scalar_outputs(out)
+    return scalar_outputs(out, state.data_parallel)
 
 
 def apply_update(state):
     """One optimizer update from the summed gradients: average them over
-    the micro-steps, clip, set the LR of update ``state.updates - 1``,
-    step Adam and clear the gradients."""
+    the ranks and the micro-steps, clip, set the LR of update
+    ``state.updates - 1``, step Adam and clear the gradients."""
     optimizer = state.optimizer
     grads = optim_lib.trainable_gradients(optimizer)
+    if state.data_parallel:
+        mesh_lib.all_reduce_mean_(grads)
     if state.accumulation_steps > 1:
         torch._foreach_div_(grads, float(state.accumulation_steps))
     if state.clip_by:

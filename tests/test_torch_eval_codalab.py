@@ -133,10 +133,16 @@ def test_eval_codalab_main_matches_eve_tpu(dataset_root, run_dir, workdir,
 
     with pytest.raises(ValueError, match='--resume-from'):
         eval_codalab.main(flags + ['--device', 'cpu'])
-    with pytest.raises(NotImplementedError, match='tpu_num_devices'):
-        eval_codalab.main(flags + ['--resume-from', runs['port'],
-                                   '--device', 'cpu',
-                                   '--tpu-num-devices', '2'])
+    # Two CPU replicas (_eval_mesh): the one-device submission.
+    runs['mesh'] = str(workdir / 'mesh')
+    shutil.copytree(run_dir, runs['mesh'])
+    eval_codalab.main(flags + ['--resume-from', runs['mesh'],
+                               '--device', 'cpu', '--tpu-num-devices', '2'])
+    got = _read_submission(runs['mesh'])['test01']['step008_image_test'][
+        'webcam_c']
+    for key in sorted(seq):
+        np.testing.assert_allclose(got[key], seq[key], rtol=1e-5, atol=1e-5,
+                                   err_msg=key)
 
 
 def _eve_tpu_frames(inputs, outputs, actual_screen_size):

@@ -29,9 +29,19 @@ from eve_tpu_torch.ops import heatmap as thm
 # ulp or so between XLA and torch, so 1e-6 relative plus 1e-7 absolute near
 # the 1e-8 floor.
 RENDER_TOL = dict(rtol=1e-6, atol=1e-7)
+
 # Soft-argmax: the sums run in another order (pairwise in torch, a tree in
 # XLA); 1e-5 relative and 1e-3 px absolute on a 1920 px screen.
 SOFTARGMAX_TOL = dict(rtol=1e-5, atol=1e-3)
+
+# The first torch.exp of a process on the CPU is now and then off by up to
+# 1.5e-4 relative (an exp with ~13 correct bits), and every later call is
+# exact to 6e-8: with the CPU build of torch 2.13 on an Intel Xeon with
+# AVX-512, the first exp of 9216 values was off in 8 of 450 fresh
+# processes, in 4 of 252 after an add, and the exp after a 4-value exp in
+# none of 253. pytest imports this module before it runs any test, so this
+# call is the process's first exp and no comparison below sees that error.
+torch.exp(torch.linspace(-3.0, 0.0, 72 * 128))
 
 
 def _centres(n, seed=0):

@@ -47,7 +47,9 @@ def test_importing_every_module_pulls_in_no_jax():
             'eve_tpu_torch.data.framecache',
             'eve_tpu_torch.models.refine_net_tpu', 'eve_tpu_torch.export',
             'eve_tpu_torch.cli.export_model',
-            'eve_tpu_torch.utils.tensors'} <= set(modules)
+            'eve_tpu_torch.utils.tensors',
+            'eve_tpu_torch.parallel', 'eve_tpu_torch.parallel.mesh'} <= set(
+                modules)
     code = (
         'import importlib, json, sys\n'
         'for m in %r:\n'

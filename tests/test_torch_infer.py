@@ -236,8 +236,9 @@ def test_streaming_iterator_matches_eve_tpu_and_one_forward(specs, params,
         next(infer.iterator(model, DataLoader(clips, batch_size=2,
                                               num_workers=0),
                             streaming=True))
-    with pytest.raises(NotImplementedError, match='later'):
-        next(infer.iterator(model, [], mesh=object()))
+    # A mesh evaluates batches, not a stream (eve_tpu's ValueError).
+    with pytest.raises(ValueError, match='streaming'):
+        next(infer.iterator(model, [], streaming=True, mesh=2))
 
 
 def test_iterator_ragged_batch_and_no_inputs(model):
@@ -278,10 +279,12 @@ def test_model_setup_reads_an_eve_tpu_run(params, tmp_path, clean_config):
     _, jparams = jinfer.model_setup(_jax_config(resume_from=run))
     for k, v in convert.eve_state_dict(jparams).items():
         assert torch.equal(got[k], v), k
-    # One device only.
-    with pytest.raises(NotImplementedError, match='tpu_num_devices'):
-        infer.model_setup(_port_config(resume_from=run, tpu_num_devices=2),
-                          device='cpu')
+    # Several devices: the same model, which infer.iterator(mesh=)
+    # replicates (tests/test_torch_parallel_eval.py).
+    several = infer.model_setup(
+        _port_config(resume_from=run, tpu_num_devices=2), device='cpu')
+    for k, v in several.state_dict().items():
+        assert torch.equal(got[k], v), k
     with pytest.raises(FileNotFoundError):
         infer.model_setup(_port_config(resume_from=str(tmp_path / 'none')),
                           device='cpu')

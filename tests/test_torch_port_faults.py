@@ -5,9 +5,10 @@
   (``eve_tpu/models/eve.py`` ``build_refine_net``): 'gated' without
   ``tpu_native_arch``, and any value but 'heatmap' or 'gated'. Without
   RefineNet neither package looks at the key.
-- ``tpu_num_devices``: training runs on one device; above 1 the
-  ``Experiment`` raises, as ``infer.model_setup`` does, and 0 ("all") with
-  several GPUs visible logs that the run uses one.
+- ``tpu_num_devices``: an ``Experiment`` is one rank of a data-parallel
+  run; above 1 outside a process group it raises (``cli.train`` starts one
+  worker a device), and 0 ("all") with several GPUs visible logs that this
+  process trains on one.
 - The final full test is logged at eve_tpu's step, ``last_step + 1``: the
   number of steps after a training loop, and one past the checkpoint's
   step when no step ran (``skip_training``, or the resume of a finished
@@ -99,7 +100,9 @@ def _config(**overrides):
 # ----------------------------------------------------------------------
 
 def test_training_refuses_more_than_one_device(tmp_path):
-    with pytest.raises(NotImplementedError, match='tpu_num_devices=2'):
+    """Outside a process group, which cli.train's launcher or torchrun
+    creates, an Experiment would train on one device."""
+    with pytest.raises(ValueError, match='tpu_num_devices=2.*process group'):
         harness.Experiment(_config(tpu_num_devices=2), str(tmp_path),
                            device='cpu')
 

@@ -91,9 +91,9 @@ def test_remat_typos_raise_and_the_cli_takes_booleans():
         DefaultConfig._reset_instance_for_testing()
     spec = teve.EveSpec.from_config(config)
     assert spec.remat_eye and spec.remat_refine
-    # The mesh and multi-host keys stay unimplemented.
+    # The seq and model mesh axes (Slice J) stay unimplemented.
     assert set(tconfig.UNIMPLEMENTED_KEYS) == {
-        'tpu_sequence_shards', 'tpu_model_parallelism', 'tpu_multihost'}
+        'tpu_sequence_shards', 'tpu_model_parallelism'}
 
 
 def _case(name):

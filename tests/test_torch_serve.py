@@ -257,13 +257,14 @@ def test_cli_refuses_random_weights():
 
 
 def test_later_slice_modes_raise(specs, params):
-    """``mesh=`` is a later slice; ``artifact=`` serves in place of spec and
-    params, so the two together raise eve_tpu's ``ValueError``
-    (tests/test_torch_serve_artifact.py serves artifacts);
-    ``device_resident=`` builds (tests/test_torch_serve_resident.py serves
-    with it)."""
+    """``mesh=`` takes a ``DataMesh`` or a device count and refuses
+    anything else (tests/test_torch_parallel_serve.py serves with meshes);
+    ``artifact=`` serves in place of spec and params, so the two together
+    raise eve_tpu's ``ValueError`` (tests/test_torch_serve_artifact.py
+    serves artifacts); ``device_resident=`` builds
+    (tests/test_torch_serve_resident.py serves with it)."""
     sd = convert.eve_state_dict(params)
-    with pytest.raises(NotImplementedError, match='later slice'):
+    with pytest.raises(TypeError, match='mesh'):
         ServingEngine(specs[1], sd, device='cpu', mesh=object())
     with pytest.raises(ValueError, match='not both'):
         ServingEngine(specs[1], sd, device='cpu', artifact='model.pt2')

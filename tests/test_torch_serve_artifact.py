@@ -206,8 +206,8 @@ def test_engine_value_errors(specs, state_dict, stateless_blob):
     with pytest.raises(ValueError, match='needs the spec\\+params path'):
         ServingEngine(artifact=stateless_blob, device='cpu',
                       device_resident=True)
-    with pytest.raises(NotImplementedError, match='later slice'):
-        ServingEngine(artifact=stateless_blob, device='cpu', mesh=object())
+    with pytest.raises(ValueError, match='mesh serving needs spec'):
+        ServingEngine(artifact=stateless_blob, device='cpu', mesh=2)
     # An artifact serves only on the device type it was exported for.
     with pytest.raises(ValueError, match='exported for cpu'):
         ServingEngine(artifact=stateless_blob, device='cuda')

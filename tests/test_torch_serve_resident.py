@@ -234,7 +234,7 @@ def test_artifact_with_device_resident_raises_eve_tpus_error():
     with pytest.raises(ValueError, match='needs the spec\\+params path'):
         ServingEngine(spec, {}, artifact='model.eve', device='cpu',
                       device_resident=True)
-    with pytest.raises(NotImplementedError, match='later slice'):
+    with pytest.raises(TypeError, match='mesh'):
         ServingEngine(spec, {}, mesh=object(), device='cpu',
                       device_resident=True)
 

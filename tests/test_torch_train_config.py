@@ -64,7 +64,10 @@ def test_learning_rate_is_derived():
 
 # One case per group of training options of later slices. Remat is
 # implemented (tests/test_torch_remat.py): its case holds a value outside
-# eve_tpu's set, which raises eve_tpu's ValueError instead.
+# eve_tpu's set, which raises eve_tpu's ValueError instead. Multi-host is
+# implemented (tests/test_torch_parallel_train.py): its case is accepted,
+# and a badly typed value raises as for any key. The sequence mesh and
+# model parallelism are Slice J.
 UNIMPLEMENTED_GROUPS = {
     'remat': {'tpu_remat': 'full'},
     'sequence mesh': {'tpu_sequence_shards': 2},
@@ -83,8 +86,16 @@ def test_unimplemented_keys_raise_unless_default(group):
         with pytest.raises(ValueError, match=key):
             cfg.import_dict({key: value})
         return
+    if key == 'tpu_multihost':
+        assert key not in tconfig.UNIMPLEMENTED_KEYS
+        cfg.import_dict({key: value, 'tpu_coordinator_address': 'h0:1234',
+                         'tpu_num_processes': 2, 'tpu_process_id': 1})
+        assert cfg.tpu_multihost and cfg.tpu_process_id == 1
+        with pytest.raises(TypeError, match='tpu_num_processes'):
+            cfg.import_dict({'tpu_num_processes': '2'})
+        return
     cfg.import_dict({key: tconfig.UNIMPLEMENTED_KEYS[key]})  # accepted
-    with pytest.raises(NotImplementedError, match=key):
+    with pytest.raises(NotImplementedError, match='Slice J'):
         cfg.import_dict({key: value})
 
 
