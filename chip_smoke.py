@@ -7,11 +7,12 @@
    versions); exits non-zero without a card.
 2. Builds the CUDA kernels from ``eve_tpu_torch/csrc`` with nvcc.
 3. Kernel phase: holds each kernel against its plain PyTorch version on the
-   card at N=0, 1, 17, 30, 80, 240, 3840 (render for sigma 10, 3, 5 one at
-   a time, sigmas 10 and 3 in one launch as ``create_images`` draws them,
-   and all three with a validity mask in one launch; soft-argmax of 72x128
-   maps in float32 and bfloat16, and of 144x256 maps at N=1, 17, 80; one
-   backward through each custom op). Times both at the serving
+   card at N=0, 1, 17, 30, 80, 120, 240, 3840 (render for sigma 10, 3, 5
+   one at a time, sigmas 10 and 3 in one launch as ``create_images`` draws
+   them, and all three with a validity mask in one launch; soft-argmax of
+   72x128 maps in float32 and bfloat16, and of 144x256 maps at N=1, 17, 80;
+   one backward through each custom op at N=80, 120, 240). Times both at
+   the serving
    path's N=80 and the Codalab path's N=3840 (render also at S=3) beside an
    empty kernel of the same launch shape, the launch floor, and checks the
    soft-argmax's cluster choice at N=3840.
@@ -46,15 +47,15 @@
    ``configs/refine_net.json`` at full width, ``eye_net_load_pretrained``
    false, ``fully_reproducible``, ``--auto-resume yes``, checkpoints, live
    validation and images every 4 steps, the profiler on, a 1/100 learning
-   rate (see CLI_BASE_LR), 96 clips (12 steps) and the final full test.
+   rate (see CLI_BASE_LR), 64 clips (8 steps) and the final full test.
    An uninterrupted run; then a run that gets SIGTERM once its log shows
-   step 6, which must exit 143 within a minute with a checkpoint at the
+   step 5, which must exit 143 within a minute with a checkpoint at the
    step its log names, and a restart with the same argv, which must log
    ``auto_resume: continuing <dir>``, take the remaining steps, run the
    final test and exit 0. Checks the losses of the preempted and resumed
    run against the uninterrupted run's within ``RESUME_LOSS_TOL`` (and that
    they leave it shifted by a step), eve_tpu's image tags, finite and in
-   [0, 1], at steps 4, 8 and 12, a non-empty profiler trace, and the
+   [0, 1], at steps 4 and 8, a non-empty profiler trace, and the
    kernel launches of the whole run. (b) ``train_batch_echoing`` 2 with
    two training sources for 4 steps in process: half as many batches
    loaded as steps, render 6 and soft-argmax 2 launches a step (twice one
@@ -164,7 +165,18 @@
    the one process's; then SIGTERM to rank 1 of two: both exit 143 at the
    agreement step, and both restarted continue there. No multi-GPU figure:
    the card is one.
-13. Prints the kernel table as one JSON line, the card, and last
+13. Grid phase (slice J, on the one card, last): ``cli.train.run`` in
+   child processes on eve_tpu's data x model x seq grid, gloo ranks that
+   share cuda:0: (a) seq = 2 for ``configs/refine_net.json`` (B = 8,
+   T = 30, 15 frames a rank) and ``configs/eye_net.json`` (B = 16, a GRU
+   carry's gradient crossing the ranks), (b) model = 2 (each rank's
+   parameter and Adam-moment bytes beside one process's, the sharded
+   leaves), (c) model 2 x seq 2 on four ranks; each run's losses within
+   rtol 1e-4 of the one process's of the same seed, its parameters within
+   the CPU tests' Adam-update limits (the L2 ratio printed), both kernels'
+   launches on every rank, the step wall and each rank's peak; and the
+   kernels timed at the per-rank N = 120.
+14. Prints the kernel table as one JSON line, the card, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the run exits non-zero without the last line.
@@ -214,9 +226,9 @@ OTHER_ATOL = 1e-3
 
 SESSIONS, CHUNKS, T, MAX_BATCH = 8, 3, 10, 8
 # Map counts the kernel phase holds the kernels at (30 = a streamed chunk,
-# 80 = the serving shape, 240 = the training shape, 3840 = a Codalab
-# batch).
-KERNEL_NS = (0, 1, 17, 30, 80, 240, 3840)
+# 80 = the serving shape, 120 = a seq = 2 rank's frames of a training
+# step (GRID_RANK_N), 240 = the training shape, 3840 = a Codalab batch).
+KERNEL_NS = (0, 1, 17, 30, 80, 120, 240, 3840)
 
 # Training phase: configs/refine_net.json's batch and clip length, 8
 # optimizer steps (one epoch of TRAIN_STEPS batches), a checkpoint and a
@@ -254,7 +266,7 @@ CMP_CARD_STEPS = 4
 # CLI_CLIPS clips (one epoch of CLI_STEPS steps), a checkpoint, a live
 # validation and images every CLI_EVERY steps; SIGTERM once the log shows
 # step CLI_PREEMPT_AFTER, and the exit 143 within CLI_EXIT_TIMEOUT seconds.
-CLI_STEPS, CLI_EVERY, CLI_PREEMPT_AFTER, CLI_EXIT_TIMEOUT = 12, 4, 6, 60
+CLI_STEPS, CLI_EVERY, CLI_PREEMPT_AFTER, CLI_EXIT_TIMEOUT = 8, 4, 5, 60
 CLI_CLIPS = CLI_STEPS * TRAIN_B
 # The CLI runs' base_learning_rate, 1/100 of the config's: two
 # uninterrupted runs on the card are not bitwise equal (cuDNN's backward
@@ -348,6 +360,28 @@ MESH_SERVE_MODES = (('mesh 1', 1, False), ('mesh 2', 2, False),
                     ('mesh 2 resident', 2, True))
 DP_STEPS, DP_PREEMPT_STEPS, DP_PREEMPT_STOP = 3, 10, 9
 DP_OUT = os.path.join(ROOT, 'build', 'chip_smoke_dp')
+# eve_tpu's grid (slice J) on one card: (name, config, B, steps, ranks,
+# flags). Each run is held against the one-process run of its config, B
+# and steps (GRID_REFS; the refine_net.json one of DP_STEPS steps is the
+# data-parallel phase's). The LR schedule spans the run's steps, so a
+# shorter run needs a reference run of its own length.
+GRID_M2S2_STEPS = 2
+EYE_CONFIG = os.path.join(ROOT, 'configs', 'eye_net.json')
+SEQ2 = ['--tpu-sequence-shards', '2']
+MODEL2 = ['--tpu-model-parallelism', '2']
+GRID_RUNS = (
+    ('seq2', CONFIG, TRAIN_B, DP_STEPS, 2, SEQ2),
+    ('seq2_eye_net', EYE_CONFIG, EYE_B, DP_STEPS, 2, SEQ2),
+    ('model2', CONFIG, TRAIN_B, DP_STEPS, 2, MODEL2),
+    ('model2_seq2', CONFIG, TRAIN_B, GRID_M2S2_STEPS, 4, MODEL2 + SEQ2),
+)
+GRID_REFS = (('one_eye_net', EYE_CONFIG, EYE_B, DP_STEPS),
+             ('one_short', CONFIG, TRAIN_B, GRID_M2S2_STEPS))
+GRID_OUT = os.path.join(ROOT, 'build', 'chip_smoke_grid')
+# The frames a seq = 2 rank renders and soft-argmaxes at B = 8, T = 30.
+GRID_RANK_N = TRAIN_B * TRAIN_T // 2
+# Map counts the kernel phase holds the custom ops' backward at.
+BACKWARD_NS = (80, GRID_RANK_N, TRAIN_B * TRAIN_T)
 
 
 def log(*args):
@@ -478,8 +512,9 @@ def kernel_phase(hk):
 
     # The backward of each custom op (the plain formula's, as eve_tpu's
     # custom_vjp), against autograd of the plain version on the same
-    # inputs, at the serving and the training map counts.
-    for n in (80, TRAIN_B * TRAIN_T):
+    # inputs, at the serving map count and the training map counts of one
+    # process and of a seq = 2 rank.
+    for n in BACKWARD_NS:
         c = torch.from_numpy(gen.uniform(0, 1900, (n, 2)).astype(
             np.float32)).to(dev)
         mask = (torch.arange(n, device=dev) % 3 != 0).float()
@@ -505,8 +540,8 @@ def kernel_phase(hk):
                      rtol=1e-4, atol=1e-4 * float(xr.grad.abs().max()))
     log('kernel phase: kernels match their plain versions at N=%s (render '
         'S=1, S=2 and S=3 masked; soft-argmax 72x128 and 144x256), backward '
-        'at N=80 and %d; max abs err render %.3g, soft-argmax %.3g px'
-        % (list(KERNEL_NS), TRAIN_B * TRAIN_T, errs['render_heatmaps'],
+        'at N=%s; max abs err render %.3g, soft-argmax %.3g px'
+        % (list(KERNEL_NS), list(BACKWARD_NS), errs['render_heatmaps'],
            errs['soft_argmax']))
     return errs
 
@@ -3447,30 +3482,35 @@ def mesh_eval_phase(hk, card):
             'one_peak': one_peak}
 
 
-def dp_argv(steps):
-    """The data-parallel runs' command line: configs/refine_net.json at
-    full width, B = TRAIN_B, ``steps`` steps of one epoch, the final full
-    test, ``--auto-resume yes``, the CLI phase's LR."""
-    return [CONFIG, '--eye-net-load-pretrained', 'no',
+def dp_argv(steps, config=CONFIG, batch=TRAIN_B, extra=()):
+    """The data-parallel and grid runs' command line: ``config`` (default
+    configs/refine_net.json) at full width, B = ``batch``, ``steps`` steps
+    of one epoch, the final full test, ``--auto-resume yes``, the CLI
+    phase's LR, then the ``extra`` flags."""
+    return [config, '--eye-net-load-pretrained', 'no',
             '--fully-reproducible', 'yes', '--auto-resume', 'yes',
             '--num-epochs', '1', '--base-learning-rate', str(CLI_BASE_LR),
-            '--batch-size', str(TRAIN_B), '--log-every-n-steps', '1',
+            '--batch-size', str(batch), '--log-every-n-steps', '1',
             '--checkpoints-save-every-n-steps', '1000',
             '--test-every-n-steps', '1000',
             '--test-num-samples', str(VAL_CLIPS),
             '--test-batch-size', str(TRAIN_B),
             '--full-test-batch-size', str(TRAIN_B),
             '--full-test-data-workers', '2', '--train-data-workers', '4',
-            '--device', 'cuda:0']
+            '--device', 'cuda:0'] + list(extra)
 
 
 def dp_child(args):
-    """A child of the data-parallel phase: ``cli.train.run`` as the rank
-    its environment names (none: one process), on ``steps`` x TRAIN_B
+    """A child of the data-parallel and grid phases: ``cli.train.run`` as
+    the rank its environment names (none: one process), on ``steps`` x B
     in-memory clips, with the device group's ``backend`` ('' = the
-    default, NCCL on the card); writes each step's full_loss and wall
-    time, the final test and the kernel launches of the whole run."""
-    record_path, out_base, steps, backend = args
+    default, NCCL on the card); ``run`` (JSON, optional) names the config,
+    B and extra flags. Writes each step's full_loss and wall time, the
+    final test, the kernel launches of the whole run, the peak memory, and
+    the bytes of the module's parameters and of the optimizer's
+    parameters (a model rank's slices) and Adam moments."""
+    record_path, out_base, steps, backend = args[:4]
+    run = json.loads(args[4]) if len(args) > 4 else {}
     sys.path.insert(0, ROOT)
     from eve_tpu_torch.cli import train as train_cli
     from eve_tpu_torch.kernels import heatmap_kernels as hk
@@ -3487,6 +3527,7 @@ def dp_child(args):
             record['walls'][step] = time.perf_counter() - t0
             yield step, metrics, images
             t0 = time.perf_counter()
+        record['bytes'] = state_bytes(exp.state)
 
     def observed_final_test(exp, test_data):
         record['final_test'] = final_test(exp, test_data)
@@ -3494,11 +3535,13 @@ def dp_child(args):
 
     harness.main_loop_iterator = observed_loop
     harness.do_final_full_test = observed_final_test
-    config, parsed = harness.script_init_common(dp_argv(int(steps)))
+    batch = run.get('batch', TRAIN_B)
+    config, parsed = harness.script_init_common(dp_argv(
+        int(steps), run.get('config', CONFIG), batch, run.get('extra', ())))
     hk.reset_launch_counts()
     try:
         train_cli.run(config, parsed.device,
-                      [spec('synthetic', 11, int(steps) * TRAIN_B)],
+                      [spec('synthetic', 11, int(steps) * batch)],
                       [spec('synthetic_val', 12, VAL_CLIPS)],
                       output_dir_base=out_base, backend=backend or None)
     finally:
@@ -3508,28 +3551,46 @@ def dp_child(args):
             json.dump(record, f)
 
 
+def state_bytes(state):
+    """Bytes of a TrainState's module parameters, of its optimizer's
+    parameters (a model rank's slices of the sharded leaves) and of its
+    Adam moments, and the number of leaves it holds slices of."""
+    def size(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+    opt = state.optimizer
+    return {'module': size(state.model.parameters()),
+            'optimizer': size(p for g in opt.param_groups
+                              for p in g['params']),
+            'moments': size(v for st in opt.state.values()
+                            for k, v in st.items()
+                            if k in ('exp_avg', 'exp_avg_sq')),
+            'sliced_leaves': len(state.shards or ())}
+
+
 class DpChild(Child):
     """``python chip_smoke.py --dp-child`` as rank ``rank`` of a
     torchrun-style world of ``world`` (``world`` 0: one process)."""
 
     def __init__(self, name, out_base, steps, world=0, rank=0, port=0,
-                 backend=''):
+                 backend='', run=None, out_dir=DP_OUT):
         env = dict(os.environ)
         if world:
             env.update(RANK=str(rank), WORLD_SIZE=str(world),
                        MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port))
         super().__init__(name, out_base, ['--dp-child', None, out_base,
-                                          str(steps), backend], env,
-                         DP_OUT)
+                                          str(steps), backend,
+                                          json.dumps(run or {})], env,
+                         out_dir)
 
 
-def dp_world(name, steps, world, backend=''):
+def dp_world(name, steps, world, backend='', run=None, out_dir=DP_OUT):
     """``world`` ranks (0: one process) started together; their
     ``(exit codes, records, children)``."""
     port = free_port()
-    base = os.path.join(DP_OUT, name)
+    base = os.path.join(out_dir, name)
     children = [DpChild('%s-rank%d' % (name, r), base, steps, world, r,
-                        port, backend) for r in range(max(world, 1))]
+                        port, backend, run, out_dir)
+                for r in range(max(world, 1))]
     results = [c.finish(900) for c in children]
     return [r[0] for r in results], [r[2] for r in results], children
 
@@ -3544,8 +3605,9 @@ def checkpoint_state(base, step):
         run_dir, 'checkpoints', '%07d.ckpt' % step))), run_dir
 
 
-def hold_updates(got, want, initial, bound, what):
-    """RefineNet's parameters after the run against the reference run's,
+def hold_updates(got, want, initial, bound, what, prefix='refine_net.'):
+    """The trained parameters (``prefix``: RefineNet's by default) after
+    the run against the reference run's,
     as the CPU parity tests hold Adam's updates
     (``tests/test_torch_train_step.py``): every element within twice the
     step bound ``bound`` (the sum of the LRs) and 99% within 10% of it.
@@ -3558,7 +3620,7 @@ def hold_updates(got, want, initial, bound, what):
     bound."""
     layers = {}
     for k in want:
-        if k.startswith('refine_net.'):
+        if k.startswith(prefix):
             layers.setdefault(k.rsplit('.', 1)[0], []).append(k)
     worst, off, total = 0.0, 0, 0
     for layer, keys in sorted(layers.items()):
@@ -3721,6 +3783,148 @@ def dp_train_phase(hk):
     return out
 
 
+def grid_phase(hk):
+    """(13): eve_tpu's grid through ``cli.train`` on the one card (gloo
+    ranks that share cuda:0, GRID_RUNS), each run held against the one
+    process's run of the same seed, config, B and steps: every rank's
+    losses (the same on every rank: each holds the whole clips' loss)
+    within rtol 1e-4, the parameters within the CPU tests' Adam-update
+    limits (the worst layer's L2 ratio printed), both kernels' launches on
+    every rank (a step renders 3 and soft-argmaxes 1 on each rank's
+    frames; the final test's 2 batches, whole clips on every rank, 2 and
+    1 each; eye_net.json none), the grid in the log, the step wall beside
+    the one process's and each rank's peak; under model = 2 each rank's
+    bytes of parameters and Adam moments beside one process's and the
+    number of sharded leaves."""
+    from eve_tpu_torch.models import eve as eve_lib
+    from eve_tpu_torch.train import optim as optim_lib
+    shutil.rmtree(GRID_OUT, ignore_errors=True)
+    os.makedirs(GRID_OUT)
+    torch.cuda.empty_cache()
+    with open(os.path.join(DP_OUT, 'one-rank0.json')) as f:
+        one = json.load(f)
+    refs = {(CONFIG, TRAIN_B, DP_STEPS): (
+        {int(k): v for k, v in one['losses'].items()},
+        {int(k): v for k, v in one['walls'].items()}, one['bytes'],
+        os.path.join(DP_OUT, 'one'))}
+    for name, config, batch, steps in GRID_REFS:
+        codes, (record,), children = dp_world(
+            name, steps, 0, run={'config': config, 'batch': batch},
+            out_dir=GRID_OUT)
+        if codes != [0] or sorted(record['losses']) != list(range(steps)):
+            raise AssertionError('%s exited %s; last lines:\n%s' % (
+                name, codes, '\n'.join(children[0].lines[-20:])))
+        refs[config, batch, steps] = (record['losses'], record['walls'],
+                                      record['bytes'],
+                                      os.path.join(GRID_OUT, name))
+    out = {'launches': {}, 'step_ms': {}}
+    for name, config, batch, steps, world, extra in GRID_RUNS:
+        codes, records, children = dp_world(
+            name, steps, world, 'gloo',
+            run={'config': config, 'batch': batch, 'extra': extra},
+            out_dir=GRID_OUT)
+        if codes != [0] * world:
+            raise AssertionError('%s run exited %s; last lines:\n%s' % (
+                name, codes, '\n'.join(l for c in children
+                                       for l in c.lines[-20:])))
+        want_losses, ref_walls, ref_bytes, ref_base = refs[
+            config, batch, steps]
+        got = np.array([records[0]['losses'][s] for s in range(steps)])
+        for r in records:
+            if sorted(r['losses']) != list(range(steps)) or \
+                    not r['final_test'] or \
+                    [r['losses'][s] for s in range(steps)] != got.tolist():
+                raise AssertionError('%s: a rank took steps %s, logged %s '
+                                     '(rank 0 %s), final test %s'
+                                     % (name, sorted(r['losses']),
+                                        r['losses'], got.tolist(),
+                                        r['final_test']))
+        if not children[0].grep('> Rank grid') or \
+                not children[0].grep('gloo with CUDA tensors'):
+            raise AssertionError('%s: no grid or gloo line in the log'
+                                 % name)
+        want = np.array([want_losses[s] for s in range(steps)])
+        np.testing.assert_allclose(got, want, **CMP_LOSS_TOL,
+                                   err_msg='%s vs one process' % name)
+        cfg = harness_config(config, batch)
+        initial = eve_lib.init_model(
+            eve_lib.EveSpec.from_config(cfg),
+            torch.Generator().manual_seed(0), 'cpu').state_dict()
+        schedule = optim_lib.make_schedule(cfg, steps)
+        bound = sum(schedule(u) for u in range(steps))
+        prefix = 'eye_net.' if config == EYE_CONFIG else 'refine_net.'
+        state, _ = checkpoint_state(os.path.join(GRID_OUT, name), steps)
+        ref_state, _ = checkpoint_state(ref_base, steps)
+        l2, off = hold_updates(state, ref_state, initial, bound,
+                               '%s vs one process' % name, prefix)
+        refine = config == CONFIG
+        per_rank = {'render_heatmaps': (3 * steps + 2 * 2) * refine,
+                    'soft_argmax': (steps + 2) * refine}
+        for r in records:
+            if {k: r['launches'][k] for k in per_rank} != per_rank:
+                raise AssertionError('%s: a rank launched %s, want %s'
+                                     % (name, r['launches'], per_rank))
+        launches = {k: sum(r['launches'][k] for r in records)
+                    for k in per_rank}
+        step_ms = 1e3 * float(np.median([records[0]['walls'][s]
+                                         for s in range(1, steps)]))
+        ref_ms = 1e3 * float(np.median([ref_walls[s]
+                                        for s in range(1, steps)]))
+        out['launches'][name] = launches
+        out['step_ms'][name] = (step_ms, ref_ms)
+        log('grid %s (%d gloo ranks on cuda:0, %s, B=%d T=%d): full_loss %s '
+            'vs one process %s, max rel err %.3g (limit rtol %g); '
+            'parameters vs one process: %.3g%% of them beyond 10%% of the '
+            'step bound %.3g (limit 1%%, all within twice it), the worst '
+            'layer\'s difference %.3g of its update (L2); kernel launches '
+            '%s on each rank' % (
+                name, world, os.path.basename(config), batch, TRAIN_T,
+                ', '.join('%.6f' % x for x in got),
+                ', '.join('%.6f' % x for x in want),
+                float(np.max(np.abs(got - want) / np.abs(want))),
+                CMP_LOSS_TOL['rtol'], 100 * off, bound, l2, per_rank))
+        log('grid %s: step wall %.1f ms (median of steps 2-%d, rank 0) '
+            'beside the one process\'s %.1f ms; peak device memory a rank '
+            '%s GiB; one card (%s): not a scaling figure' % (
+                name, step_ms, steps, ref_ms, ', '.join(
+                    '%.2f' % (r['peak'] / 2 ** 30) for r in records),
+                card_line()))
+        if 'model' in name:
+            sliced = {r['bytes']['sliced_leaves'] for r in records}
+            if sliced == {0} or len(sliced) != 1 or not children[0].grep(
+                    'model axis shards'):
+                raise AssertionError('%s: sliced leaves %s' % (name, sliced))
+            log('grid %s: a rank\'s optimizer holds %s MB of parameters '
+                '(its slices) and %s MB of Adam moments, one process %.2f '
+                'and %.2f MB; the module\'s working copy %.2f MB on each '
+                '(the forward\'s full weights); %s of the trained leaves '
+                'sliced; %s' % (
+                    name, ', '.join('%.2f' % (r['bytes']['optimizer'] / 1e6)
+                                    for r in records),
+                    ', '.join('%.2f' % (r['bytes']['moments'] / 1e6)
+                              for r in records),
+                    ref_bytes['optimizer'] / 1e6, ref_bytes['moments'] / 1e6,
+                    records[0]['bytes']['module'] / 1e6, sliced.pop(),
+                    children[0].grep('model axis shards')[0].split(
+                        'INFO ')[-1]))
+    return out
+
+
+def harness_config(config, batch):
+    """The port config of a grid or data-parallel child run."""
+    from eve_tpu_torch.cli import common
+    config, _ = common.parse_config(dp_argv(1, config, batch))
+    return config
+
+
+def timed(name, fn, *args):
+    """``fn(*args)``, with its seconds logged."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log('phase %s: %.1f s' % (name, time.perf_counter() - t0))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA card visible (torch.cuda.is_available() '
@@ -3749,26 +3953,32 @@ def main():
         if 'registers' in line or 'spill' in line:
             log('  ptxas:', line.strip())
 
-    errs = kernel_phase(hk)
+    card0 = torch.device('cuda', 0)
+    errs = timed('kernels', kernel_phase, hk)
     timings = kernel_timings(hk, SESSIONS * T)
     timings_eval = kernel_timings(hk, CODALAB_N)
-    launches, serve_profile = serve_phase(hk)
-    resident = resident_phase(hk)
-    train = training_phase(hk, torch.device('cuda', 0))
-    cli = train_cli_phase(hk, torch.device('cuda', 0))
-    evals = eval_phase(hk, torch.device('cuda', 0))
+    launches, serve_profile = timed('serve', serve_phase, hk)
+    resident = timed('resident', resident_phase, hk)
+    train = timed('train', training_phase, hk, card0)
+    cli = timed('train-cli', train_cli_phase, hk, card0)
+    evals = timed('eval', eval_phase, hk, card0)
     f32 = {'serve_profile': serve_profile, 'train': train,
            'eye_net': cli['eye_net'], 'eval': evals,
            'modes': resident['float32']}
-    bf16 = bf16_phase(hk, torch.device('cuda', 0), f32)
-    native = native_phase(hk, torch.device('cuda', 0), {
+    bf16 = timed('bf16', bf16_phase, hk, card0, f32)
+    native = timed('native', native_phase, hk, card0, {
         'float32': f32,
         'bfloat16': dict(bf16['figures'], modes=resident['bfloat16'])})
-    exported = export_phase(hk, torch.device('cuda', 0), resident['float32'],
-                            f32)
-    mesh_serve = mesh_serve_phase(hk, resident['float32'])
-    mesh_eval = mesh_eval_phase(hk, torch.device('cuda', 0))
-    dp_train = dp_train_phase(hk)
+    exported = timed('export', export_phase, hk, card0, resident['float32'],
+                     f32)
+    mesh_serve = timed('mesh serve', mesh_serve_phase, hk,
+                       resident['float32'])
+    mesh_eval = timed('mesh eval', mesh_eval_phase, hk, card0)
+    dp_train = timed('dp train', dp_train_phase, hk)
+    grid_train = timed('grid', grid_phase, hk)
+    timings_rank = kernel_timings(hk, GRID_RANK_N)
+    log('kernel times at N=%d, the frames of a seq = 2 rank: %s'
+        % (GRID_RANK_N, card_line()))
     # Launch counts of the slice F and G paths, by JSON key.
     new_paths = {}
     for dtype, prefix in (('float32', ''), ('bfloat16', 'bf16_')):
@@ -3807,6 +4017,10 @@ def main():
         dp_train['launches']['nccl']
     new_paths['dp_gloo_two_rank_train_launches'] = \
         dp_train['launches']['gloo']
+    # Slice J: each rank of the grid renders 3 and soft-argmaxes 1 a step
+    # on its frames (eye_net.json: none); summed over the ranks.
+    for name, counts in grid_train['launches'].items():
+        new_paths['grid_%s_train_launches' % name] = counts
 
     source = 'eve_tpu_torch/csrc/heatmap_kernels.cu'
     replaces = {'render_heatmaps': 'eve_tpu/kernels/heatmap_kernels.py:38',
@@ -3829,7 +4043,8 @@ def main():
                      'bf16_eye_net_train_launches': bf16['eye_net'][name],
                      'bf16_codalab_launches': bf16['codalab'][name],
                      'max_abs_err': errs[name],
-                     'n%d' % CODALAB_N: timings_eval[name]},
+                     'n%d' % CODALAB_N: timings_eval[name],
+                     'n%d' % GRID_RANK_N: timings_rank[name]},
                     **{k: v[name] for k, v in new_paths.items()},
                     **timings[name])
                for name in ('render_heatmaps', 'soft_argmax')]
@@ -3840,6 +4055,7 @@ def main():
             exported['overhead'][row['name']]['direct_us']
     kernels[0]['s3'] = timings['render_heatmaps_s3']
     kernels[0]['n%d_s3' % CODALAB_N] = timings_eval['render_heatmaps_s3']
+    kernels[0]['n%d_s3' % GRID_RANK_N] = timings_rank['render_heatmaps_s3']
     log(json.dumps({'kernels': kernels}))
     log('card:', card_line())
     log(json.dumps({'ok': True, 'device': {

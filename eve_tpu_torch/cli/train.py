@@ -14,11 +14,14 @@ continues that run. After training, the validation split is tested whole
 (the final full test). Reading the dataset needs ``h5py`` and ``ffmpeg``
 or ``cv2``.
 
-Several GPUs (data parallelism, one worker process a GPU):
+Several GPUs (one worker process a GPU, on eve_tpu's grid: the data axis,
+and the model and seq axes of ``--tpu-model-parallelism`` and
+``--tpu-sequence-shards``):
 
 - ``--tpu-num-devices N`` (0, the default, is every visible card) takes
-  eve_tpu's rule, the largest count up to N that divides the per-step
-  batch, and starts that many workers with ``torch.multiprocessing``,
+  eve_tpu's rule: the model and seq axes claim their cards first, the data
+  axis is the largest count of the rest that divides the per-step batch;
+  it starts that many workers with ``torch.multiprocessing``,
   worker r on ``cuda:r``, meeting on localhost; the command's exit code is
   the workers' (143 when they were preempted, another non-zero code when
   one failed, after the others are stopped);
@@ -42,6 +45,7 @@ import sys
 import threading
 import time
 
+import numpy as np
 import torch
 
 from eve_tpu_torch.data.dataset import EVESequences_train, EVESequences_val
@@ -56,7 +60,9 @@ FAILED_WORKER_GRACE_S = 10.0
 
 def worker_count(config, device, env=None):
     """How many workers to start on this host, or None to train in this
-    process (one device, or a process that is already a rank)."""
+    process (one device, or a process that is already a rank). A grid
+    that cannot form raises eve_tpu's ``ValueError``s
+    (``harness.training_grid``)."""
     env = os.environ if env is None else env
     if mesh_lib.launched_by_torchrun(env) or 'LOCAL_RANK' in env:
         return None
@@ -66,7 +72,8 @@ def worker_count(config, device, env=None):
     hosts = config.tpu_num_processes if config.tpu_multihost else 1
     step_batch = config.batch_size // max(
         int(config.gradient_accumulation_steps), 1) // max(hosts, 1)
-    count = mesh_lib.data_axis_size(step_batch, available, 'per-step batch')
+    axes = harness.training_grid(config, available, step_batch)
+    count = int(np.prod(list(axes.values())))
     if count == 1:
         return None
     if device.type == 'cuda':

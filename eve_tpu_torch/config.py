@@ -9,24 +9,21 @@ is accepted where a float is expected. So ``configs/eye_net.json`` and
 ``batch_size * base_learning_rate``; setting it is type-checked and has no
 effect, as in eve_tpu.
 
-Keys that ``eve_tpu`` knows but the port does not read fall in two groups
-(see ROADMAP.md):
+Every key of eve_tpu's is read, except the ``DEFERRED_KEYS`` (host-side
+packing and caches, see ROADMAP.md): a JSON file may set them and they
+are ignored, because nothing the port runs depends on
+them. ``use_native_framepack`` stays there for good: the port's dataset
+reader always emits uint8 frames, which the model normalises on the
+device, so there is no host-side float packing to switch. For the same
+reason the reader ignores ``tpu_on_device_preprocess``; the export CLI
+reads it, as eve_tpu's does, to give the artifact uint8 frames.
 
-- ``DEFERRED_KEYS`` (host-side packing and caches): a JSON file may set
-  them and they are ignored, because nothing the port runs depends on
-  them. ``use_native_framepack`` stays here for good: the port's dataset
-  reader always emits uint8 frames, which the model normalises on the
-  device, so there is no host-side float packing to switch. For the same
-  reason the reader ignores ``tpu_on_device_preprocess``; the export CLI
-  reads it, as eve_tpu's does, to give the artifact uint8 frames;
-- ``UNIMPLEMENTED_KEYS`` (the sequence and model meshes, Slice J): they
-  raise ``NotImplementedError`` when set to anything but their default, so
-  a run never silently differs from the one its config describes.
-
-The data axis and multi-host start-up are read: ``tpu_num_devices``,
-``serve_num_devices``, ``tpu_multihost``, ``tpu_coordinator_address``,
-``tpu_num_processes`` (hosts) and ``tpu_process_id`` (this host's index),
-with eve_tpu's meanings and defaults (``eve_tpu_torch.parallel.mesh``).
+The mesh and multi-host start-up are read: ``tpu_num_devices``,
+``serve_num_devices``, ``tpu_model_parallelism``, ``tpu_sequence_shards``,
+``tpu_multihost``, ``tpu_coordinator_address``, ``tpu_num_processes``
+(hosts) and ``tpu_process_id`` (this host's index), with eve_tpu's
+meanings and defaults (``eve_tpu_torch.parallel.mesh``); the grid's
+errors are eve_tpu's (``train.harness.training_grid``).
 
 ``tpu_remat`` takes eve_tpu's values: 'none', 'eye', 'refine', 'all', or a
 boolean or its command-line spelling ('all' or 'none'); anything else
@@ -55,14 +52,6 @@ DEFERRED_KEYS = frozenset((
     'note', 'prefetch_buffer_size',
     'tpu_compile_cache_dir', 'tpu_use_pallas', 'use_native_framepack',
 ))
-
-# Options of Slice J (the ``seq`` and ``model`` mesh axes), with eve_tpu's
-# defaults: any other value raises (NotImplementedError) instead of being
-# ignored.
-UNIMPLEMENTED_KEYS = {
-    'tpu_sequence_shards': 1,
-    'tpu_model_parallelism': 1,
-}
 
 _REMAT_MODES = ('none', 'eye', 'refine', 'all')
 
@@ -129,6 +118,15 @@ class Config:
     # process a device (cli/train.py starts them); evaluation replicates
     # the model over the devices in one process.
     tpu_num_devices = 0
+
+    # The training grid's model and seq axes (parallel/mesh.py): the model
+    # axis places the large parameters' slices and their Adam moments over
+    # its ranks; the seq axis splits each clip's frames over its ranks and
+    # hands the recurrences' carry between them (parallel/temporal.py); it
+    # must divide max_sequence_len. Both claim their ranks before the data
+    # axis. 1 = off.
+    tpu_model_parallelism = 1
+    tpu_sequence_shards = 1
 
     # Multi-host training (parallel/mesh.py initialize_multihost): the
     # coordinator is host 0's 'address:port', tpu_num_processes counts the
@@ -375,13 +373,6 @@ class Config:
         for key, value in dictionary.items():
             if key in DEFERRED_KEYS:
                 logger.debug('Ignoring key %s (not used by the port yet)', key)
-                continue
-            if key in UNIMPLEMENTED_KEYS:
-                if value != UNIMPLEMENTED_KEYS[key]:
-                    raise NotImplementedError(
-                        '%s=%r: the port implements only %r so far; the '
-                        'seq and model mesh axes are Slice J (ROADMAP.md)'
-                        % (key, value, UNIMPLEMENTED_KEYS[key]))
                 continue
             if not hasattr(type(self), key):
                 raise ValueError('Unknown configuration key: ' + key)

@@ -6,15 +6,24 @@ per item b:  acc_b = sum_t validity[b,t] * loss[b,t]
              acc_b /= num_valid_b   (only when num_valid_b > 1, the
                                      reference's edge case)
 final     :  mean_b acc_b
+
+Every loss takes ``seq``, the grid's seq axis (``parallel.mesh.Axis``)
+when the clips' frames are split over ranks: each item's ``acc_b`` and
+``num_valid_b`` are then summed over the axis before the divide, so the
+edge rule reads the clip's global count and the loss is eve_tpu's global
+mean on every rank. (Averaging the ranks' own means would give another
+number: a clip's frames are not equally valid on every rank.)
 """
 
 import torch
 
 from eve_tpu_torch.ops.geometry import angular_error_degrees
+from eve_tpu_torch.parallel.temporal import seq_sum
 
 
-def masked_mean(per_frame_loss, validity):
-    """(B, T) losses and validities -> scalar float32 loss."""
+def masked_mean(per_frame_loss, validity, seq=None):
+    """(B, T) losses and validities -> scalar float32 loss (of the whole
+    clips' frames, under ``seq``)."""
     v = validity.float()
     loss = per_frame_loss.float()
     # where (not v * l): invalid frames contribute neither value nor
@@ -22,6 +31,8 @@ def masked_mean(per_frame_loss, validity):
     loss = torch.where(v > 0, loss, torch.zeros_like(loss))
     num_valid = v.sum(dim=1)
     acc = loss.sum(dim=1)
+    if seq is not None and seq.size > 1:
+        acc, num_valid = seq_sum(torch.stack([acc, num_valid]), seq)
     acc = torch.where(num_valid > 1, acc / torch.clamp(num_valid, min=1.0),
                       acc)
     return acc.mean()
@@ -32,14 +43,14 @@ def _feature_dims(x):
     return tuple(range(2, x.ndim))
 
 
-def mse_loss(pred, gt, validity):
+def mse_loss(pred, gt, validity, seq=None):
     """Per-frame mean squared error over the feature dims."""
     sq = torch.square(pred.float() - gt.float())
     per_frame = sq.mean(dim=_feature_dims(pred)) if pred.ndim > 2 else sq
-    return masked_mean(per_frame, validity)
+    return masked_mean(per_frame, validity, seq)
 
 
-def l1_loss(pred, gt, validity):
+def l1_loss(pred, gt, validity, seq=None):
     """Per-frame mean absolute error over the feature dims.
 
     Where prediction equals label the gradient is +1, as ``jnp.abs``'s is
@@ -48,10 +59,10 @@ def l1_loss(pred, gt, validity):
     d = pred.float() - gt.float()
     ab = torch.where(d >= 0, d, -d)
     per_frame = ab.mean(dim=_feature_dims(pred)) if pred.ndim > 2 else ab
-    return masked_mean(per_frame, validity)
+    return masked_mean(per_frame, validity, seq)
 
 
-def euclidean_loss(pred, gt, validity):
+def euclidean_loss(pred, gt, validity, seq=None):
     """Per-frame sqrt of the summed squared difference.
 
     Double-where guards the sqrt: at ssd == 0 its gradient is infinite, and
@@ -61,16 +72,16 @@ def euclidean_loss(pred, gt, validity):
     positive = ssd > 0.0
     safe = torch.where(positive, ssd, torch.ones_like(ssd))
     per_frame = torch.where(positive, torch.sqrt(safe), torch.zeros_like(ssd))
-    return masked_mean(per_frame, validity)
+    return masked_mean(per_frame, validity, seq)
 
 
-def angular_loss(pred, gt, validity):
+def angular_loss(pred, gt, validity, seq=None):
     """Per-frame angular error in degrees (pitch/yaw or 3D inputs)."""
     per_frame = angular_error_degrees(pred.float(), gt.float())
-    return masked_mean(per_frame, validity)
+    return masked_mean(per_frame, validity, seq)
 
 
-def cross_entropy_loss(pred, gt, validity):
+def cross_entropy_loss(pred, gt, validity, seq=None):
     """Per-frame binary cross entropy, mean over heatmap pixels.
 
     -(y log x + (1-y) log(1-x)) with each log clamped at -100, as
@@ -90,4 +101,4 @@ def cross_entropy_loss(pred, gt, validity):
         lt1, torch.clamp(torch.log1p(-torch.where(lt1, x, torch.zeros_like(x))),
                          min=-100.0), floor)
     ce = -(y * log_x + (1.0 - y) * log_1mx)
-    return masked_mean(ce.mean(dim=_feature_dims(ce)), validity)
+    return masked_mean(ce.mean(dim=_feature_dims(ce)), validity, seq)

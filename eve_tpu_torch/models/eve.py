@@ -52,8 +52,17 @@ features ('eye'), RefineNet's encoder ('refine') or both ('all') in the
 backward pass instead of keeping their activations
 (``torch.utils.checkpoint``, as eve_tpu's ``jax.checkpoint``). It applies
 only to a training forward that records a graph: inference, and 'eye'
-under a frozen EyeNet (whose stages keep no graph), are unchanged. The
-sequence mesh is a later slice.
+under a frozen EyeNet (whose stages keep no graph), are unchanged.
+
+``forward(seq_group=...)`` is eve_tpu's ``forward(seq_mesh=...)``: the
+batch holds this seq rank's frames of its clips (``parallel.temporal.
+local_frames``), the two loops (the GRU's, the CLSTM's) run as the rank's
+part of a scan over the whole clips (``temporal.scan_shard``: the carry
+comes from the previous rank and goes to the next, in the forward and,
+reversed, in the backward pass), and every loss and metric is the whole
+clips' (``losses.masked_mean`` sums each clip's terms over the axis).
+Every other stage runs on the rank's own frames. The final states are
+replicated over the axis when ``return_states`` asks for them.
 """
 
 import contextlib
@@ -74,6 +83,7 @@ from eve_tpu_torch.models.refine_net import LEVEL_SHAPES, RefineNet
 from eve_tpu_torch.models.refine_net_tpu import RefineNetTPU
 from eve_tpu_torch.ops import geometry as geo
 from eve_tpu_torch.ops import heatmap as hm_ops
+from eve_tpu_torch.parallel import temporal
 # Re-exported: callers take them from here, as from eve_tpu's module.
 from eve_tpu_torch.utils.tensors import (  # noqa: F401
     batch_to_tensors, tree_map)
@@ -285,7 +295,7 @@ class EVE(nn.Module):
 
     def forward(self, batch, training=False, generator=None,
                 output_predictions=False, create_images=False,
-                initial_states=None, return_states=False):
+                initial_states=None, return_states=False, seq_group=None):
         """Full EVE forward over a (B, T, ...) clip batch of tensors.
 
         Returns the output dict of losses, metrics and (optionally)
@@ -295,8 +305,15 @@ class EVE(nn.Module):
         ``training`` turns on the kappa offset augmentation, whose kappas
         are drawn on ``generator`` (a CPU ``torch.Generator``) unless the
         batch carries ``left_kappa_fake`` and ``right_kappa_fake``.
+        ``seq_group`` (a ``parallel.mesh.Axis``) splits the clips' frames
+        over its ranks (see the module docstring).
         """
         spec = self.spec
+        if seq_group is not None and seq_group.size == 1:
+            seq_group = None
+        if seq_group is not None and create_images:
+            raise ValueError('create_images needs whole clips; it does not '
+                             'run under a seq_group')
         eye_net, refine_net = self.eye_net, self.refine_net
         full = dict(batch)
         full.update(calculate_additional_labels(spec, batch, generator,
@@ -310,7 +327,8 @@ class EVE(nn.Module):
                    else contextlib.nullcontext())
         with eye_ctx:
             feats, rnn_l, rnn_r, final_states = self._eye_net_stages(
-                full, B, T, initial_states, training)
+                full, B, T, initial_states, training, seq_group,
+                return_states)
             # --- Stage 3: heads ---
             g_l, pupil_l = eye_net.heads(rnn_l)
             g_r, pupil_r = eye_net.heads(rnn_r)
@@ -366,13 +384,12 @@ class EVE(nn.Module):
                 else:
                     states = refine_net.init_state(B, device=net_in.device)
                 seq = bottleneck_in.reshape((B, T) + bottleneck_in.shape[1:])
-                outs = []
-                for t in range(T):
-                    out, states = refine_net.bottleneck_step(seq[:, t], states)
-                    outs.append(out)
+                states, bottleneck_out = _scan(
+                    lambda c, x: refine_net.bottleneck_step(x, c)[::-1],
+                    states, seq, seq_group, 'refine',
+                    refine_net.parameters(), return_states)
                 final_states['refine'] = states
-                bottleneck_out = torch.stack(outs, dim=1).reshape(
-                    bottleneck_in.shape)
+                bottleneck_out = bottleneck_out.reshape(bottleneck_in.shape)
             else:
                 bottleneck_out = bottleneck_in
                 final_states['refine'] = ()
@@ -436,13 +453,14 @@ class EVE(nn.Module):
         if create_images:
             output.update(image_outputs(spec, full, interm))
 
-        calculate_losses_and_metrics(full, interm, output, do_aug)
+        calculate_losses_and_metrics(full, interm, output, do_aug, seq_group)
         output['full_loss'] = _full_loss(spec, output, feats.device)
         if return_states:
             output['states'] = final_states
         return output
 
-    def _eye_net_stages(self, full, B, T, initial_states, training=False):
+    def _eye_net_stages(self, full, B, T, initial_states, training=False,
+                        seq_group=None, return_states=False):
         """Stages 1-2: ``(features, rnn_left, rnn_right, final_states)``."""
         spec = self.spec
         eye_net = self.eye_net
@@ -475,11 +493,10 @@ class EVE(nn.Module):
             else:
                 states = eye_net.init_state(2 * B, device=feats.device)
             feats_lr = torch.cat([feats_l, feats_r], dim=0)   # (2B, T, F)
-            outs = []
-            for t in range(T):
-                out, states = eye_net.recurrent(feats_lr[:, t], states)
-                outs.append(out)
-            out_lr = torch.stack(outs, dim=1)
+            states, out_lr = _scan(
+                lambda c, x: eye_net.recurrent(x, c)[::-1], states, feats_lr,
+                seq_group, 'eye', eye_net.rnn_cells.parameters(),
+                return_states)
             final_states = {'eye_left': tree_map(lambda a: a[:B], states),
                             'eye_right': tree_map(lambda a: a[B:], states)}
             rnn_l, rnn_r = out_lr[:B], out_lr[B:]
@@ -488,6 +505,21 @@ class EVE(nn.Module):
             rnn_r = eye_net.static_path(feats_r)
             final_states = {'eye_left': (), 'eye_right': ()}
         return feats, rnn_l, rnn_r, final_states
+
+
+def _scan(step_fn, states, seq, seq_group, chain, params, return_states):
+    """A loop over dim 1 of ``seq``: ``(final states, outputs stacked on
+    dim 1)``; under a ``seq_group`` this rank's part of the loop over the
+    whole clips (``temporal.scan_shard``)."""
+    if seq_group is not None:
+        return temporal.scan_shard(step_fn, states, seq, seq_group, chain,
+                                   list(params), time_dim=1,
+                                   replicate_final=return_states)
+    outs = []
+    for t in range(seq.shape[1]):
+        states, out = step_fn(states, seq[:, t])
+        outs.append(out)
+    return states, torch.stack(outs, dim=1)
 
 
 def init_weights(model, generator):
@@ -765,11 +797,15 @@ def init_stream_state(spec, batch_size, device=None):
 # Losses and metrics
 # ----------------------------------------------------------------------
 
-def calculate_losses_and_metrics(full, interm, output, do_aug=False):
+def calculate_losses_and_metrics(full, interm, output, do_aug=False,
+                                 seq=None):
     """eve_tpu's losses and metrics.
 
     With the offset augmentation (``do_aug``) the initial losses read the
     *_unaugmented branch; without it the plain keys hold the predictions.
+    Under ``seq`` (a seq axis) each is the whole clips' on every rank: the
+    masked means sum their per-clip terms over the axis before dividing
+    (``losses.masked_mean``).
     """
     for side in ('left', 'right'):
         suffix = '_initial_unaugmented' if do_aug else '_initial'
@@ -778,29 +814,29 @@ def calculate_losses_and_metrics(full, interm, output, do_aug=False):
         if pred_key in interm and gt in full:
             output['loss_ang_' + side + '_g_initial'] = \
                 losses_lib.angular_loss(interm[pred_key], full[gt],
-                                        full[gt + '_validity'])
+                                        full[gt + '_validity'], seq=seq)
 
         gt = side + '_PoG_cm_tobii'
         pred_key = side + '_PoG_cm' + suffix
         if pred_key in interm and gt in full:
             output['loss_mse_' + side + '_PoG_cm_initial'] = \
                 losses_lib.mse_loss(interm[pred_key], full[gt],
-                                    full[gt + '_validity'])
+                                    full[gt + '_validity'], seq=seq)
             output['metric_euc_' + side + '_PoG_cm_initial'] = \
                 losses_lib.euclidean_loss(interm[pred_key], full[gt],
-                                          full[gt + '_validity'])
+                                          full[gt + '_validity'], seq=seq)
 
         gt = side + '_PoG_tobii'
         pred_key = side + '_PoG_px_initial'
         if pred_key in interm and gt in full:
             output['metric_euc_' + pred_key] = losses_lib.euclidean_loss(
-                interm[pred_key], full[gt], full[gt + '_validity'])
+                interm[pred_key], full[gt], full[gt + '_validity'], seq=seq)
 
         gt = side + '_p'
         pred_key = side + '_pupil_size'
         if pred_key in interm and gt in full:
             output['loss_l1_' + pred_key] = losses_lib.l1_loss(
-                interm[pred_key], full[gt], full[gt + '_validity'])
+                interm[pred_key], full[gt], full[gt + '_validity'], seq=seq)
 
     if ('left_PoG_tobii' in full and 'right_PoG_tobii' in full and
             'left_PoG_cm_initial' in interm):
@@ -808,24 +844,24 @@ def calculate_losses_and_metrics(full, interm, output, do_aug=False):
                        full['right_PoG_tobii_validity'].bool())
         output['loss_mse_lr_consistency'] = losses_lib.mse_loss(
             interm['left_PoG_cm_initial'], interm['right_PoG_cm_initial'],
-            lr_validity)
+            lr_validity, seq=seq)
         output['metric_euc_lr_consistency'] = losses_lib.euclidean_loss(
             interm['left_PoG_cm_initial'], interm['right_PoG_cm_initial'],
-            lr_validity)
+            lr_validity, seq=seq)
 
     pred_key = 'heatmap_initial_unaugmented' if do_aug else 'heatmap_initial'
     if pred_key in interm and 'heatmap_initial' in full:
         output['loss_ce_heatmap_initial'] = losses_lib.cross_entropy_loss(
             interm[pred_key], full['heatmap_initial'],
-            full['heatmap_initial_validity'])
+            full['heatmap_initial_validity'], seq=seq)
 
     if 'heatmap_final' in interm and 'heatmap_final' in full:
         output['loss_ce_heatmap_final'] = losses_lib.cross_entropy_loss(
             interm['heatmap_final'], full['heatmap_final'],
-            full['heatmap_final_validity'])
+            full['heatmap_final_validity'], seq=seq)
         output['loss_mse_heatmap_final'] = losses_lib.mse_loss(
             interm['heatmap_final'], full['heatmap_final'],
-            full['heatmap_final_validity'])
+            full['heatmap_final_validity'], seq=seq)
 
     if do_aug:
         for pred_key, gt, fn, name in (
@@ -837,7 +873,8 @@ def calculate_losses_and_metrics(full, interm, output, do_aug=False):
                  losses_lib.angular_loss, 'metric_ang_')):
             if pred_key in interm and gt in full:
                 output[name + pred_key] = fn(
-                    interm[pred_key], full[gt], full[gt + '_validity'])
+                    interm[pred_key], full[gt], full[gt + '_validity'],
+                    seq=seq)
 
     for pred_key, gt in (('PoG_px_initial', 'PoG_px_tobii'),
                          ('PoG_cm_initial', 'PoG_cm_tobii'),
@@ -845,14 +882,14 @@ def calculate_losses_and_metrics(full, interm, output, do_aug=False):
                          ('PoG_cm_final', 'PoG_cm_tobii')):
         if pred_key in interm and gt in full:
             output['loss_mse_' + pred_key] = losses_lib.mse_loss(
-                interm[pred_key], full[gt], full[gt + '_validity'])
+                interm[pred_key], full[gt], full[gt + '_validity'], seq=seq)
             output['metric_euc_' + pred_key] = losses_lib.euclidean_loss(
-                interm[pred_key], full[gt], full[gt + '_validity'])
+                interm[pred_key], full[gt], full[gt + '_validity'], seq=seq)
 
     for pred_key in ('g_initial', 'g_final'):
         if pred_key in interm and 'g' in full:
             output['metric_ang_' + pred_key] = losses_lib.angular_loss(
-                interm[pred_key], full['g'], full['g_validity'])
+                interm[pred_key], full['g'], full['g_validity'], seq=seq)
 
     # The gated readout's diagnostics, metrics only: the heatmap's own
     # reading and the mean gate.
@@ -860,9 +897,11 @@ def calculate_losses_and_metrics(full, interm, output, do_aug=False):
         output['metric_euc_PoG_px_heatmap_final'] = \
             losses_lib.euclidean_loss(interm['PoG_px_heatmap_final'],
                                       full['PoG_px_tobii'],
-                                      full['PoG_px_tobii_validity'])
+                                      full['PoG_px_tobii_validity'], seq=seq)
     if 'refine_gate' in interm:
-        output['metric_mean_refine_gate'] = interm['refine_gate'].mean()
+        # Every rank holds as many frames: the mean of the ranks' means.
+        gate = temporal.seq_sum(interm['refine_gate'].mean(), seq)
+        output['metric_mean_refine_gate'] = gate / (seq.size if seq else 1)
 
 
 def _full_loss(spec, output, device):

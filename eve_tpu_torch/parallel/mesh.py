@@ -1,9 +1,11 @@
-"""Data parallelism: the in-process device mesh and the process group.
+"""The device mesh, the process group and eve_tpu's rank grid.
 
-The counterpart of ``eve_tpu/parallel/mesh.py``'s ``data`` axis. eve_tpu
-drives every device from one process through a ``jax.sharding.Mesh``:
-GSPMD splits the batch along ``P('data')``, replicates the parameters and
-all-reduces the gradients. The port maps that onto PyTorch in two ways:
+The counterpart of ``eve_tpu/parallel/mesh.py``. eve_tpu drives every
+device from one process through a ``jax.sharding.Mesh``: GSPMD splits the
+batch along ``P('data')``, shards the recurrences' T axis over ``seq``
+(``eve_tpu/parallel/temporal.py``), places large parameters and their Adam
+moments over ``model`` and all-reduces the gradients. The port maps that
+onto PyTorch in two ways:
 
 - Serving and evaluation stay in one process. A ``DataMesh`` is a tuple
   of ``torch.device``s on a 1-D ``data`` axis; ``replicate`` puts a module
@@ -15,15 +17,32 @@ all-reduces the gradients. The port maps that onto PyTorch in two ways:
 - Training runs a process per GPU in a ``torch.distributed`` process group
   (``initialize_multihost``). The device group carries device tensors
   (NCCL on the card, gloo on the CPU): the parameter broadcast and the
-  gradient all-reduce (``all_reduce_mean_``). A second, gloo, group carries
-  the host's small agreements (``broadcast_string``, ``all_gather_flags``,
+  gradient all-reduce. A second, gloo, group carries the host's small
+  agreements (``broadcast_string``, ``all_gather_flags``,
   ``broadcast_object``), so they never touch the card. Multi-host uses the
   same group: eve_tpu's ``tpu_num_processes`` counts hosts and
   ``tpu_process_id`` is the host's index; the ranks of a host are its
   local workers, one per GPU.
 
-``make_mesh_nd`` and ``shard_model_tree`` (the ``seq`` and ``model`` axes)
-are not here yet (ROADMAP.md, Slice J).
+The ranks form eve_tpu's grid (``make_mesh_nd``): axes ``{'data': d,
+'model': m, 'seq': s}`` in the harness's order, rank ``r = (di*m + mi)*s +
+si`` as ``devices[:total].reshape(sizes)`` places them. ``RankGrid`` gives
+a rank its coordinates and one sub-group an axis, plus the data x seq group
+that reduces the gradients; a ``seq`` rank holds frames ``[si*T/s,
+(si+1)*T/s)`` of its data shard's clips (``parallel/temporal.py``), and a
+``model`` rank owns one slice of each leaf that ``shard_model_tree``
+places over the axis, with that slice's Adam moments (``ModelShards``).
+Every handoff and gather uses ``broadcast`` and ``all_reduce`` only, the
+two collectives that both NCCL and gloo carry on CUDA tensors; so the
+same functions run two ranks that share one card over gloo.
+
+Starting a grid: ``python -m eve_tpu_torch.cli.train configs/refine_net.json
+--tpu-sequence-shards 2 --tpu-model-parallelism 2 --tpu-num-devices 4``
+starts the 4 workers itself; under ``torchrun --nproc-per-node 4 -m
+eve_tpu_torch.cli.train ...`` the same flags shape the world torchrun
+made. ``python3 chip_smoke.py`` runs seq = 2, model = 2 and model 2 x
+seq 2 as gloo ranks that share ``cuda:0``; the CPU tests are
+``tests/test_torch_parallel_{seq,model}.py``.
 """
 
 import logging
@@ -39,7 +58,7 @@ logger = logging.getLogger(__name__)
 # index and count, the rank's index among the host's workers and their
 # count, and the gloo group of the host-side agreements.
 _STATE = {'host': 0, 'hosts': 1, 'local_rank': 0, 'local_world': 1,
-          'host_group': None}
+          'host_group': None, 'grid': None, 'backend': None}
 # Environment variables of a torchrun-style launch.
 TORCHRUN_VARS = ('RANK', 'WORLD_SIZE', 'MASTER_ADDR', 'MASTER_PORT')
 
@@ -252,6 +271,7 @@ def initialize_multihost(coordinator_address=None, num_processes=None,
                   local_world=local_world)
     _STATE['host_group'] = (dist.group.WORLD if backend == 'gloo'
                             else dist.new_group(backend='gloo'))
+    _STATE['backend'] = backend
     logger.info('> Process group: rank %d of %d (host %d of %d, worker %d '
                 'of %d), %s device group, gloo host group',
                 dist.get_rank(), dist.get_world_size(), host, hosts,
@@ -263,7 +283,7 @@ def shutdown():
     if dist.is_initialized():
         dist.destroy_process_group()
     _STATE.update(host=0, hosts=1, local_rank=0, local_world=1,
-                  host_group=None)
+                  host_group=None, grid=None, backend=None)
 
 
 def in_process_group():
@@ -361,13 +381,23 @@ def all_gather_flags(flag):
     return [bool(t.item()) for t in out]
 
 
-def gather_to_host(tree, skip_local=False):
+def gather_to_host(tree, skip_local=False, sharded=None, shards=None):
     """A host copy of a dict (or list) of tensors.
 
-    Data parallelism replicates every parameter, so this is a local copy
-    and no collective; eve_tpu's signature is kept. ``skip_local`` returns
-    the tree unchanged (a rank that writes nothing skips the copy).
+    Replicated leaves are a local copy, no collective. ``sharded`` maps
+    keys of a dict ``tree`` whose values are this rank's slice over the
+    model axis of ``shards`` (a ``ModelShards``) to the torch dim they are
+    cut on: those are gathered to their full value first, a COLLECTIVE
+    that every rank of the axis must call, as eve_tpu's
+    ``process_allgather``. ``skip_local`` returns the tree's other leaves
+    unchanged and the gathered ones on the device (a rank that writes
+    nothing joins the collective and skips the copies).
     """
+    if sharded:
+        keys = sorted(k for k in tree if k in sharded)
+        full = shards.gather([tree[k] for k in keys],
+                             [sharded[k] for k in keys])
+        tree = dict(tree, **dict(zip(keys, full)))
     if skip_local:
         return tree
     if isinstance(tree, dict):
@@ -380,8 +410,8 @@ def gather_to_host(tree, skip_local=False):
 
 
 def _coalesced(tensors, op):
-    """Run the device-group collective ``op`` on one flat buffer of
-    ``tensors`` and copy the result back."""
+    """Run the collective ``op`` on one flat buffer of ``tensors`` and
+    copy the result back."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
     op(flat)
     offset = 0
@@ -391,30 +421,365 @@ def _coalesced(tensors, op):
         offset += n
 
 
-def all_reduce_mean_(tensors):
-    """Average ``tensors`` (same shapes and dtype on every rank) over the
-    device group, in place, in one coalesced all-reduce; a group of one
-    rank runs it too. Without a group they are returned as they are."""
-    if not dist.is_initialized() or not tensors:
+def all_reduce_(tensors, group=None, divide_by=1):
+    """Sum ``tensors`` (same shapes and dtype on every rank) over ``group``
+    (default: the device group), in place, in one coalesced all-reduce,
+    then divide by ``divide_by``; a group of one rank runs it too. Without
+    a process group, or with ``group`` None inside a grid axis of one rank
+    (see ``RankGrid.group``), they are returned as they are."""
+    if not dist.is_initialized() or not tensors or group is _NO_GROUP:
         return tensors
-    world = dist.get_world_size()
 
     def reduce(flat):
-        dist.all_reduce(flat)
-        flat.div_(world)
+        dist.all_reduce(flat, group=group)
+        if divide_by != 1:
+            flat.div_(divide_by)
 
     _coalesced(tensors, reduce)
     return tensors
 
 
-def broadcast_tensors_(tensors, src=0):
-    """Rank ``src``'s values of ``tensors`` on every rank, in place, in one
-    coalesced broadcast (a collective per dtype) over the device group."""
-    if not dist.is_initialized() or not tensors:
+def all_reduce_mean_(tensors, group=None):
+    """Average ``tensors`` over ``group`` (default: every rank) in one
+    coalesced all-reduce, in place (see ``all_reduce_``)."""
+    if not dist.is_initialized() or group is _NO_GROUP:
+        return tensors
+    return all_reduce_(tensors, group, dist.get_world_size(group))
+
+
+def broadcast_tensors_(tensors, src=0, group=None):
+    """Rank ``src``'s (a global rank) values of ``tensors`` on every rank
+    of ``group`` (default: the device group), in place, in one coalesced
+    broadcast (a collective per dtype)."""
+    if not dist.is_initialized() or not tensors or group is _NO_GROUP:
         return tensors
     by_dtype = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        _coalesced(group, lambda flat: dist.broadcast(flat, src=src))
+    for same in by_dtype.values():
+        _coalesced(same, lambda flat: dist.broadcast(flat, src=src,
+                                                     group=group))
     return tensors
+
+
+# ---------------------------------------------------------------------------
+# The rank grid: eve_tpu's data x model x seq mesh over the process group
+# ---------------------------------------------------------------------------
+
+# The group of an axis of one rank: every collective over it is the
+# identity (there is nothing to exchange), and none is issued.
+_NO_GROUP = 'no group'
+# The recurrent chains that hand a carry between seq ranks, each over pair
+# groups of its own, so that the two chains' handoffs (the GRU's and the
+# CLSTM's) never share a communicator and their order cannot deadlock.
+CHAINS = ('eye', 'refine')
+
+
+class Axis:
+    """One axis of a rank's grid: the rank's ``index`` on it, its ``size``,
+    the global ranks of its members in axis order and their group."""
+
+    def __init__(self, name, index, size, ranks, group):
+        self.name, self.index, self.size = name, index, size
+        self.ranks = tuple(ranks)
+        self.group = group
+        self._pairs = {}
+
+    def pair(self, chain, lower):
+        """The group of members ``lower`` and ``lower + 1`` for ``chain``'s
+        handoffs (seq axis)."""
+        return self._pairs[chain, lower]
+
+
+class RankGrid:
+    """eve_tpu's N-D mesh (``make_mesh_nd``) over the process group's
+    ranks, seen from one rank.
+
+    ``shape`` holds the axis sizes in their order; ``coords`` the rank's
+    index on each. ``axis(name)`` is an ``Axis`` (an axis the grid lacks
+    has size 1); ``data_seq`` is the group of ranks that share this rank's
+    model coordinate, over which the gradients are reduced.
+    """
+
+    def __init__(self, shape, rank, axes, data_seq):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+        self.rank = rank
+        self.coords = {n: a.index for n, a in axes.items()}
+        self._axes = axes
+        self.data_seq = data_seq
+
+    def axis(self, name):
+        if name in self._axes:
+            return self._axes[name]
+        return Axis(name, 0, 1, (self.rank,), _NO_GROUP)
+
+    def index(self, name):
+        return self.axis(name).index
+
+    def count(self, name):
+        return self.axis(name).size
+
+
+def _grid_rank(shape, coords):
+    """The global rank at ``coords`` of a grid of ``shape`` (row-major, as
+    ``reshape`` places ``devices[:total]``)."""
+    names = tuple(shape)
+    return int(np.ravel_multi_index(tuple(coords.get(n, 0) for n in names),
+                                    tuple(shape[n] for n in names)))
+
+
+def _coordinates(shape, axes):
+    """Every coordinate of ``axes`` of a grid ``shape``, row-major, as
+    dicts."""
+    return [dict(zip(axes, (int(v) for v in values)))
+            for values in np.ndindex(*[shape[n] for n in axes])]
+
+
+def make_mesh_nd(axis_sizes):
+    """The process group's ranks as eve_tpu's mesh with named axes, e.g.
+    ``{'data': 2, 'seq': 2}``; returns this rank's ``RankGrid`` and keeps
+    it (``grid()``).
+
+    A COLLECTIVE: every rank creates every sub-group (``dist.new_group``)
+    in the same order. The world must hold the grid exactly: fewer ranks
+    raise eve_tpu's message, more would leave ranks idle and raise too.
+    Without a process group the grid is one rank's.
+    """
+    names = tuple(axis_sizes)
+    sizes = tuple(int(axis_sizes[n]) for n in names)
+    total = int(np.prod(sizes))
+    world = process_count()
+    if world < total:
+        raise ValueError('need %d devices for mesh %r, have %d'
+                         % (total, dict(axis_sizes), world))
+    if world > total:
+        raise ValueError('a mesh %r of %d ranks in a world of %d would '
+                         'leave %d ranks idle' % (dict(axis_sizes), total,
+                                                  world, world - total))
+    rank = process_index()
+    shape = dict(zip(names, sizes))
+    coords = dict(zip(names, (int(c) for c in np.unravel_index(rank, sizes))))
+    cache = {}
+
+    def group_of(members, tag=''):
+        # Every rank creates every group, in one order; a group of one
+        # rank issues no collective.
+        if len(members) == 1:
+            return _NO_GROUP
+        key = (tuple(members), tag)
+        if key not in cache:
+            cache[key] = dist.new_group(list(members))
+        return cache[key]
+
+    def groups(varying, tag=''):
+        """Create the groups of the ``varying`` axes, one for every
+        coordinate of the others; return this rank's ``(ranks, group)``."""
+        mine = None
+        for at in _coordinates(shape, [n for n in names
+                                       if n not in varying]):
+            ranks = [_grid_rank(shape, dict(at, **c))
+                     for c in _coordinates(shape, varying)]
+            group = group_of(ranks, tag)
+            if rank in ranks:
+                mine = (ranks, group)
+        return mine
+
+    axes = {}
+    if not dist.is_initialized():
+        for n in names:
+            axes[n] = Axis(n, 0, 1, (0,), _NO_GROUP)
+        data_seq = _NO_GROUP
+    else:
+        for n in names:
+            ranks, group = groups([n])
+            axes[n] = Axis(n, coords[n], shape[n], ranks, group)
+        data_seq = groups([n for n in ('data', 'seq') if n in names])[1] \
+            if any(n in names for n in ('data', 'seq')) else _NO_GROUP
+        if shape.get('seq', 1) > 1:
+            seq = axes['seq']
+            for chain in CHAINS:
+                for at in _coordinates(shape, [n for n in names
+                                               if n != 'seq']):
+                    for lower in range(shape['seq'] - 1):
+                        pair = [_grid_rank(shape, dict(at, seq=lower + i))
+                                for i in range(2)]
+                        group = group_of(pair, chain)
+                        if rank in pair:
+                            seq._pairs[chain, lower] = group
+    grid = RankGrid(shape, rank, axes, data_seq)
+    _STATE['grid'] = grid
+    if dist.is_initialized():
+        logger.info('> Rank grid %s: rank %d at %s, %s device group', shape,
+                    rank, coords, _STATE['backend'])
+    return grid
+
+
+def grid():
+    """This rank's grid (``make_mesh_nd``), or None when none was made:
+    then the whole world is the data axis."""
+    return _STATE['grid']
+
+
+def data_index():
+    """This rank's coordinate on the data axis: its shard of the clips."""
+    g = grid()
+    return g.index('data') if g is not None else process_index()
+
+
+def data_count():
+    """The size of the data axis."""
+    g = grid()
+    return g.count('data') if g is not None else process_count()
+
+
+def data_group():
+    """The group of the data axis (None: the whole device group)."""
+    g = grid()
+    return g.axis('data').group if g is not None else None
+
+
+def model_sharding_spec(shape, n, axis_name='model', min_size=4096):
+    """eve_tpu's tensor-parallel placement rule on an eve_tpu leaf shape:
+    the LAST dim (a convolution kernel's O of HWIO, a dense kernel's out of
+    (in, out)) over the axis when it divides by ``n`` and the leaf has at
+    least ``min_size`` elements, as a tuple in the form of a
+    ``PartitionSpec``; else ``()`` (replicated)."""
+    shape = tuple(shape)
+    if len(shape) >= 1 and shape[-1] % n == 0 and \
+            int(np.prod(shape)) >= min_size:
+        return (None,) * (len(shape) - 1) + (axis_name,)
+    return ()
+
+
+def shard_model_tree(n, state_dict, axis_name='model', min_size=4096):
+    """The leaves eve_tpu's ``shard_model_tree`` places over a model axis
+    of ``n`` ranks (``n`` may be a ``RankGrid``): ``{name: torch dim}``
+    of the port's state dict (or module) ``state_dict``.
+
+    The rule is eve_tpu's and applies to eve_tpu's leaf shapes, which the
+    weight map gives (``utils.convert.eve_layouts``): the dim is the torch
+    dim that holds eve_tpu's last dim (a convolution's or a linear layer's
+    dim 0, the dense cells' dim -1).
+    """
+    from eve_tpu_torch.utils import convert
+    if isinstance(n, RankGrid):
+        n = n.count(axis_name)
+    if isinstance(state_dict, torch.nn.Module):
+        state_dict = state_dict.state_dict()
+    out = {}
+    for name, (shape, dim) in convert.eve_layouts(state_dict).items():
+        if model_sharding_spec(shape, n, axis_name, min_size):
+            out[name] = dim
+    return out
+
+
+class ModelShards:
+    """The model axis of a rank in the first form: each sharded leaf keeps
+    its full value in the module for the forward (gathered after every
+    update, so the forward is the one-process forward bitwise), and the
+    rank's optimizer holds slice ``index`` of it along ``dims[name]``,
+    with that slice's Adam moments. This object owns the map from each
+    such slice to its leaf (``place``); the optimizer's other tensors are
+    the module's parameters themselves."""
+
+    def __init__(self, axis, dims):
+        self.axis = axis
+        self.dims = dict(dims)
+        self._leaves = {}  # id of a slice -> (slice, name, full parameter)
+
+    def __len__(self):
+        """The number of leaves whose slices the optimizer holds."""
+        return len(self._leaves)
+
+    def chunk(self, full, dim, index=None):
+        """Slice ``index`` (default: this rank's) of ``full`` along ``dim``,
+        a view."""
+        index = self.axis.index if index is None else index
+        c = full.shape[dim] // self.axis.size
+        return full.narrow(dim, index * c, c)
+
+    def slice(self, name, full):
+        """This rank's slice of leaf ``name``'s full value (a copy)."""
+        return self.chunk(full, self.dims[name]).clone()
+
+    def place(self, optimizer, model):
+        """Replace each of ``optimizer``'s parameters that is a sharded
+        leaf of ``model`` by this rank's slice of it, its Adam state
+        sliced alike."""
+        names = {id(p): n for n, p in model.named_parameters()}
+        for group in optimizer.param_groups:
+            for i, p in enumerate(group['params']):
+                name = names[id(p)]
+                if name not in self.dims:
+                    continue
+                piece = self.slice(name, p.detach())
+                self._leaves[id(piece)] = (piece, name, p)
+                optimizer.state[piece] = self.slice_state(
+                    piece, optimizer.state.pop(p, {}))
+                group['params'][i] = piece
+
+    def slices(self):
+        """``{leaf name: this rank's slice}`` of the placed leaves."""
+        return {name: piece for piece, name, _ in self._leaves.values()}
+
+    def full(self, p):
+        """The module parameter that optimizer tensor ``p`` trains: its
+        leaf for a slice, else ``p``."""
+        leaf = self._leaves.get(id(p))
+        return p if leaf is None else leaf[2]
+
+    def slice_state(self, p, values):
+        """Optimizer tensor ``p``'s state ``values`` with each tensor of
+        the full leaf's shape cut to this rank's slice (``p`` a slice;
+        others' are returned as they are)."""
+        leaf = self._leaves.get(id(p))
+        if leaf is None:
+            return values
+        _, name, full = leaf
+        return {k: (self.slice(name, v)
+                    if torch.is_tensor(v) and v.shape == full.shape else v)
+                for k, v in values.items()}
+
+    def sliced_dim(self, p, value):
+        """The dim that ``value``, a state tensor of optimizer tensor
+        ``p``, is cut on over the axis, or None when it is not a slice."""
+        leaf = self._leaves.get(id(p))
+        if leaf is None or value.shape != p.shape:
+            return None
+        return self.dims[leaf[1]]
+
+    def step(self, optimizer):
+        """``optimizer.step()`` on this rank's slices: each slice's
+        gradient is cut from its leaf's full gradient, and the updated
+        slices are gathered back into the leaves. A COLLECTIVE over the
+        axis."""
+        leaves = list(self._leaves.values())
+        for piece, name, full in leaves:
+            piece.grad = self.chunk(full.grad, self.dims[name]).clone()
+        optimizer.step()
+        if leaves:
+            with torch.no_grad():
+                self.gather([piece for piece, _, _ in leaves],
+                            [self.dims[name] for _, name, _ in leaves],
+                            out=[full for _, _, full in leaves])
+
+    def gather(self, parts, dims, out=None):
+        """The full tensors of this rank's slices ``parts`` (cut on
+        ``dims``), written into ``out`` when given. A COLLECTIVE over the
+        axis: one coalesced broadcast of each member's slices."""
+        if out is None:
+            out = []
+            for p, d in zip(parts, dims):
+                shape = list(p.shape)
+                shape[d] *= self.axis.size
+                out.append(p.new_empty(shape))
+        for j, src in enumerate(self.axis.ranks):
+            if j == self.axis.index:
+                bufs = [p.clone() for p in parts]
+            else:
+                bufs = [torch.empty_like(p) for p in parts]
+            broadcast_tensors_(bufs, src=src, group=self.axis.group)
+            for full, d, b in zip(out, dims, bufs):
+                self.chunk(full, d, j).copy_(b)
+        return out

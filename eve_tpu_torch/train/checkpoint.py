@@ -30,9 +30,12 @@ bytes are exactly this step's state.
 
 In a data-parallel run only rank 0 saves (``harness.save_checkpoint``):
 every rank holds the same replicated state, so the snapshot is a local
-copy (``parallel.mesh.gather_to_host``). On resume rank 0 reads, and
-``snapshot``'s optimizer part goes to the other ranks
-(``load_optimizer_snapshot``).
+copy (``parallel.mesh.gather_to_host``). Under the model axis each rank
+holds its slices of the sharded leaves' Adam moments: ``snapshot`` gathers
+them on every rank (a collective) before rank 0 writes, so the checkpoint
+has one process's layout. On resume rank 0 reads, and ``snapshot``'s
+optimizer part goes to the other ranks (``load_optimizer_snapshot``),
+which slice what they own.
 """
 
 import logging
@@ -71,25 +74,37 @@ def flatten_tree(tree, prefix=()):
     return out
 
 
-def snapshot(state):
+def snapshot(state, skip_local=False):
     """The state's parameters, optimizer state and partial gradients as
-    CPU tensors the caller owns (a synchronous copy off the device)."""
+    CPU tensors the caller owns (a synchronous copy off the device).
+
+    Under the model axis a COLLECTIVE (every rank of the axis calls it):
+    the sharded Adam moments are gathered to their full values.
+    ``skip_local`` (a rank that writes nothing) joins the gather and
+    skips the copies."""
     model, optimizer = state.model, state.optimizer
-    names = {p: n for n, p in model.named_parameters()}
-    params = gather_to_host(model.state_dict())
-    opt = {}
+    names = {id(p): n for n, p in model.named_parameters()}
+    opt, sharded = {}, {}
     sd = optimizer.state_dict()
     ordered = [p for g in optimizer.param_groups for p in g['params']]
     for index, values in sd['state'].items():
-        name = names[ordered[index]]
+        p = ordered[index]
+        name = names[id(state.leaf(p))]
         for k, v in values.items():
-            opt['state/%s/%s' % (name, k)] = gather_to_host(
-                torch.as_tensor(v))
+            key = 'state/%s/%s' % (name, k)
+            opt[key] = torch.as_tensor(v)
+            dim = (None if state.shards is None
+                   else state.shards.sliced_dim(p, opt[key]))
+            if dim is not None:
+                sharded[key] = dim
     if state.step % state.accumulation_steps:
-        for p in ordered:
+        for p in state.full_parameters():
             if p.grad is not None:
-                opt['grad/' + names[p]] = gather_to_host(p.grad)
-    return params, opt
+                opt['grad/' + names[id(p)]] = p.grad
+    opt = gather_to_host(opt, skip_local, sharded, state.shards)
+    if skip_local:
+        return None, None
+    return gather_to_host(model.state_dict()), opt
 
 
 def load_optimizer_snapshot(state, opt):
@@ -113,16 +128,20 @@ class CheckpointManager:
     def _step_dir(self, step):
         return os.path.join(self.checkpoint_dir, ('%07d' % step) + _SUFFIX)
 
-    def save_at_step(self, step, state, wait=True):
+    def save_at_step(self, step, state, wait=True, write=True):
         """Write the state as checkpoint ``step``; returns its directory.
 
         ``wait=False`` returns after the host snapshot and writes on a
         background thread; its error surfaces at the next save, load,
-        ``wait_for_writes`` or ``close``.
+        ``wait_for_writes`` or ``close``. ``write=False`` only joins the
+        snapshot's collectives (a rank of the model axis that is not
+        rank 0).
         """
         # At most one snapshot alive: join the previous write first.
         self.wait_for_writes()
-        params, opt = snapshot(state)
+        params, opt = snapshot(state, skip_local=not write)
+        if not write:
+            return None
         if wait:
             return self._write(step, params, opt)
         if self._writer is None:
@@ -216,16 +235,22 @@ class CheckpointManager:
 
 def _load_optimizer(state, tree):
     """Restore Adam's per-parameter state (and partial gradients) by
-    parameter name."""
+    parameter name; a rank of the model axis keeps its slices of the
+    sharded leaves' moments."""
     optimizer = state.optimizer
     params = dict(state.model.named_parameters())
+    names = {id(p): n for n, p in params.items()}
     ordered = [p for g in optimizer.param_groups for p in g['params']]
-    index = {id(p): i for i, p in enumerate(ordered)}
+    index = {names[id(state.leaf(p))]: i for i, p in enumerate(ordered)}
     sd = optimizer.state_dict()
     sd['state'] = {}
     for name, values in tree.get('state', {}).items():
-        sd['state'][index[id(params[name])]] = {
-            k: torch.from_numpy(np.asarray(v)) for k, v in values.items()}
+        i = index[name]
+        values = {k: torch.from_numpy(np.asarray(v))
+                  for k, v in values.items()}
+        if state.shards is not None:
+            values = state.shards.slice_state(ordered[i], values)
+        sd['state'][i] = values
     optimizer.load_state_dict(sd)
     for name, g in tree.get('grad', {}).items():
         p = params[name]
@@ -275,7 +300,7 @@ def optax_optimizer_tree(state, flat):
     anything else raises, naming the leaf.
     """
     named = dict(state.model.named_parameters())
-    held = {id(p) for g in state.optimizer.param_groups for p in g['params']}
+    held = {id(p) for p in state.full_parameters()}
     trainable = {n for n, p in named.items() if id(p) in held}
     moments = {}
     for node in sorted(_adam_nodes(flat)):

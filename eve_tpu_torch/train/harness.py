@@ -54,6 +54,22 @@ Data parallelism runs one process a rank (``eve_tpu_torch.parallel.mesh``):
 - live validation and the final full test split each batch over the ranks
   (a ragged final batch padded with zero-validity clips) and average the
   batch's scalars over them, so the logged numbers equal one device's.
+
+The ranks form eve_tpu's grid (``training_grid``, ``mesh.make_mesh_nd``):
+``tpu_model_parallelism`` and ``tpu_sequence_shards`` claim their ranks
+first and the data axis divides the rest, with eve_tpu's errors. Then:
+
+- the loader rows and the kappa rows are the rank's data coordinate's, so
+  the seq and model ranks of a data shard read the same clips and draw
+  the same kappas; a seq rank trains on its frames of them
+  (``temporal.local_frames``);
+- the parameters start from rank 0's everywhere, a resume loads full
+  tensors, and then each model rank keeps its slices of the sharded
+  leaves in the optimizer (``step.shard_model``); ``save_checkpoint``
+  gathers the sharded moments on every rank before rank 0 writes;
+- live validation and the final full test run data-parallel over the data
+  axis with whole clips on every seq rank and the full weights on every
+  model rank, as eve_tpu runs its eval steps without ``seq_mesh``.
 """
 
 import glob
@@ -73,6 +89,7 @@ from eve_tpu_torch.cli import common
 from eve_tpu_torch.data.loader import DataLoader, DevicePrefetcher, to_device
 from eve_tpu_torch.models import eve as eve_lib
 from eve_tpu_torch.parallel import mesh as mesh_lib
+from eve_tpu_torch.parallel import temporal
 from eve_tpu_torch.train import checkpoint as checkpoint_lib
 from eve_tpu_torch.train import step as step_lib
 from eve_tpu_torch.train.checkpoint import CheckpointManager
@@ -101,8 +118,50 @@ def script_init_common(argv=None, description='Train a gaze estimation model.'):
     return config, args
 
 
+def training_grid(config, n_avail, step_batch=None):
+    """eve_tpu's grid of ``n_avail`` devices: ``{'data': d[, 'model': m][,
+    'seq': s]}``, with its ``ValueError``s.
+
+    The model and seq axes claim their devices first and must divide
+    ``n_avail``; the seq axis must divide ``max_sequence_len``; the data
+    axis is the largest count of what remains that divides the per-step
+    batch (``step_batch``, default ``batch_size`` over the accumulation
+    steps), with a warning when that is fewer.
+    """
+    if step_batch is None:
+        step_batch = config.batch_size // max(
+            int(config.gradient_accumulation_steps), 1)
+    mp = max(int(config.tpu_model_parallelism), 1)
+    sp = max(int(config.tpu_sequence_shards), 1)
+    if mp * sp > n_avail:
+        raise ValueError(
+            'tpu_model_parallelism=%d x tpu_sequence_shards=%d needs '
+            '%d devices, have %d' % (mp, sp, mp * sp, n_avail))
+    if n_avail % (mp * sp) != 0:
+        # Flooring here would silently idle devices the user paid for
+        # (e.g. 8 devices with model=3 would use 6 and strand 2).
+        raise ValueError(
+            'tpu_model_parallelism=%d x tpu_sequence_shards=%d must '
+            'divide the %d available devices (a non-divisor would '
+            'leave %d devices idle)'
+            % (mp, sp, n_avail, n_avail % (mp * sp)))
+    if config.max_sequence_len % sp != 0:
+        raise ValueError(
+            'tpu_sequence_shards=%d must divide max_sequence_len=%d '
+            '(the distributed scan splits the T axis evenly)'
+            % (sp, config.max_sequence_len))
+    axes = {'data': mesh_lib.data_axis_size(step_batch, n_avail // (mp * sp),
+                                            'per-step batch')}
+    if mp > 1:
+        axes['model'] = mp
+    if sp > 1:
+        axes['seq'] = sp
+    return axes
+
+
 def init_process_group(config, device, backend=None):
-    """Join the data-parallel process group, if this process is a rank.
+    """Join the process group and form the rank grid, if this process is a
+    rank.
 
     ``tpu_multihost`` starts the group from the coordinator keys (eve_tpu's
     ``initialize_multihost`` call in its ``script_init_common``; here it
@@ -110,7 +169,9 @@ def init_process_group(config, device, backend=None):
     a torchrun-style environment starts it from ``env://``; otherwise the
     process trains alone and nothing happens. ``backend`` is the device
     group's: NCCL for a CUDA device, gloo for the CPU. Gloo with CUDA
-    tensors (the two-ranks-on-one-card check) must be asked for.
+    tensors (ranks that share one card) must be asked for. Then the ranks
+    form eve_tpu's grid (``training_grid``; a world that the grid does
+    not fill exactly raises).
     """
     device = torch.device(device)
     if not (config.tpu_multihost or mesh_lib.launched_by_torchrun()):
@@ -119,14 +180,24 @@ def init_process_group(config, device, backend=None):
         backend = 'nccl' if device.type == 'cuda' else 'gloo'
     if backend == 'gloo' and device.type == 'cuda':
         logger.warning('device group over gloo with CUDA tensors: every '
-                       'all-reduce goes through the host (ranks that share '
-                       'one card, a check of the data-parallel path)')
+                       'collective goes through the host (ranks that share '
+                       'one card, a check of the parallel paths)')
     mesh_lib.initialize_multihost(
         config.tpu_coordinator_address or None,
         config.tpu_num_processes or None, config.tpu_process_id,
         backend=backend)
     logger.info('> Data parallel: rank %d of %d on %s',
                 mesh_lib.process_index(), mesh_lib.process_count(), device)
+    grid = mesh_lib.grid()
+    if grid is None:
+        grid = mesh_lib.make_mesh_nd(training_grid(
+            config, mesh_lib.process_count()))
+    per_shard = grid.count('model') * grid.count('seq')
+    if mesh_lib.host_count() > 1 and mesh_lib.local_world_size() % per_shard:
+        raise ValueError(
+            'tpu_model_parallelism x tpu_sequence_shards = %d must divide '
+            'the %d workers of a host (a data shard lives on one host)'
+            % (per_shard, mesh_lib.local_world_size()))
 
 
 def training_seed(config):
@@ -158,17 +229,18 @@ def kappa_generator(seed, step, source=None):
 def with_rank_kappas(spec, batch, generator):
     """``batch`` with this rank's rows of the global batch's kappas.
 
-    The global batch's (B x world, 2) kappas are drawn from ``generator``
-    as one process would draw them, and the rank keeps its rows, so every
-    world size trains on the same kappas. Without a group, or without the
-    offset augmentation, the batch is returned as it is (the forward draws
-    from the generator itself).
+    The global batch's (B x data axis, 2) kappas are drawn from
+    ``generator`` as one process would draw them, and the rank keeps its
+    data coordinate's rows, so every grid trains on the same kappas (the
+    seq and model ranks of a data shard on the same ones). With a data
+    axis of one rank, or without the offset augmentation, the batch is
+    returned as it is (the forward draws from the generator itself).
     """
-    world = mesh_lib.process_count()
+    world = mesh_lib.data_count()
     if world == 1 or not spec.refine_net_do_offset_augmentation:
         return batch
     B, T = batch['left_eye_patch'].shape[:2]
-    rank = mesh_lib.process_index()
+    rank = mesh_lib.data_index()
     out = dict(batch)
     for side, kappa in zip(('left', 'right'),
                            eve_lib.draw_kappas(spec, B * world, generator)):
@@ -197,15 +269,20 @@ def init_datasets(config, train_specs, test_specs):
                          'gradient_accumulation_steps %d'
                          % (config.batch_size, accum))
     # Data parallelism: each host takes its slice of the clip list, and
-    # each of its ranks its rows of the host's batches.
-    hosts, workers = mesh_lib.host_count(), mesh_lib.local_world_size()
+    # each of its data shards its rows of the host's batches (the model and
+    # seq ranks of a shard read the same rows).
+    grid = mesh_lib.grid()
+    per_shard = grid.count('model') * grid.count('seq') if grid else 1
+    hosts = mesh_lib.host_count()
+    workers = mesh_lib.local_world_size() // per_shard
     host_batch = config.batch_size // accum // hosts
     if (config.batch_size // accum) % hosts or host_batch % workers:
         raise ValueError(
             'batch_size %d must divide by %d hosts x %d workers a host x '
             '%d accumulation steps' % (config.batch_size, hosts, workers,
                                        accum))
-    shard = (mesh_lib.local_rank(), workers) if workers > 1 else None
+    shard = ((mesh_lib.local_rank() // per_shard, workers) if workers > 1
+             else None)
     train_data = {}
     for tag, dataset_class, path, stimuli, cameras in train_specs:
         dataset = dataset_class(path, config=config, cameras_to_use=cameras,
@@ -264,14 +341,14 @@ class HostSlice:
 def SubsetLoader(dataset, indices, batch_size, num_workers=0):
     """A loader over ``dataset`` (or its ``indices``) in order, the last
     batch ragged: live validation and the final full test. With several
-    ranks each reads its rows of every batch, when the batch divides by
-    the ranks; otherwise every rank evaluates whole batches (eve_tpu's
-    replicated fallback)."""
-    world = mesh_lib.process_count()
+    data shards each reads its rows of every batch, when the batch divides
+    by the data axis; otherwise every rank evaluates whole batches
+    (eve_tpu's replicated fallback)."""
+    world = mesh_lib.data_count()
     shard = None
     if world > 1:
         if batch_size % world == 0:
-            shard = (mesh_lib.process_index(), world)
+            shard = (mesh_lib.data_index(), world)
         else:
             logger.info('eval batch %d does not divide by %d ranks: every '
                         'rank evaluates it whole', batch_size, world)
@@ -351,6 +428,8 @@ class Experiment:
         self.device = torch.device(device)
         alone = not mesh_lib.in_process_group()
         self.primary = mesh_lib.is_primary_process()
+        # eve_tpu's grid errors (a grid of one process when alone).
+        training_grid(config, mesh_lib.process_count())
         if alone and config.tpu_num_devices > 1:
             raise ValueError(
                 'tpu_num_devices=%d: this process is not in a process '
@@ -441,6 +520,19 @@ class Experiment:
         if self.state.data_parallel:
             # Every rank starts from rank 0's parameters and buffers.
             mesh_lib.broadcast_tensors_(list(model.state_dict().values()))
+        grid = self.state.grid
+        if grid is not None and grid.count('model') > 1:
+            placed = step_lib.shard_model(self.state)
+            if not placed:
+                logger.warning(
+                    'tpu_model_parallelism=%d sharded ZERO parameter leaves '
+                    '(no last dim divisible/large enough); the model axis '
+                    'only costs devices', grid.count('model'))
+            else:
+                logger.info('model axis shards %d parameter leaves (%d of '
+                            'them trained: their slices and Adam moments '
+                            'live on their model rank)', len(placed),
+                            len(self.state.shards))
         if cfg.profile_dir:
             self.tensorboard.add_graph(model)
         return self
@@ -480,8 +572,12 @@ def step_modulo(current, interval_size):
 def save_checkpoint(exp, step, wait=True):
     """Checkpoint ``exp.state`` at ``step``: rank 0 writes. Data
     parallelism replicates the state, so no rank's copy is needed for it
-    (eve_tpu's ``gather_to_host`` is a local copy here)."""
-    if exp.primary:
+    (eve_tpu's ``gather_to_host`` is a local copy then); under the model
+    axis every rank joins the gather of the sharded moments first."""
+    if exp.state.shards is not None:
+        exp.checkpoint_manager.save_at_step(step, exp.state, wait=wait,
+                                            write=exp.primary)
+    elif exp.primary:
         exp.checkpoint_manager.save_at_step(step, exp.state, wait=wait)
 
 
@@ -661,18 +757,22 @@ def main_loop_iterator(exp, train_data, test_data):
                 wait_start = time.perf_counter()
                 batches = {tag: next_batch(tag) for tag in tags}
                 perf_wait += time.perf_counter() - wait_start
+            seq = exp.state.seq  # a seq rank trains on its frames
+
+            def rank_batch(tag, generator):
+                return temporal.local_frames(with_rank_kappas(
+                    exp.spec, batches[tag], generator), seq)
+
             if multi_source:
                 generators = {tag: kappa_generator(seed, current_step, i)
                               for i, tag in enumerate(sorted(tags))}
                 metrics = step_lib.multi_source_train_step(
-                    exp.state, {tag: with_rank_kappas(exp.spec, batches[tag],
-                                                      generators[tag])
+                    exp.state, {tag: rank_batch(tag, generators[tag])
                                 for tag in tags}, generators)
             else:
                 generator = kappa_generator(seed, current_step)
                 metrics = step_lib.train_step(
-                    exp.state, with_rank_kappas(exp.spec, batches[tag0],
-                                                generator), generator)
+                    exp.state, rank_batch(tag0, generator), generator)
             # Recorded here: live validation later in this iteration may
             # exit for a preemption, and its checkpoint counts this step.
             exp.last_epoch = current_epoch
@@ -791,8 +891,8 @@ def test_model_on_all(exp, test_data, current_step, log_key_prefix='test'):
     """Evaluate on every validation loader: per tag, the mean of each 0-dim
     output over its clips (batch means weighted by batch size). Returns
     ``(results, row for the Google Sheet or None)``. A preemption request
-    is honoured between batches. A loader that reads one rank's rows
-    (``shard``) has its scalars averaged over the ranks."""
+    is honoured between batches. A loader that reads one data shard's
+    rows (``shard``) has its scalars averaged over the data axis."""
     final_out = {}
     for tag, data_dict in test_data.items():
         loader = data_dict['dataloader']
@@ -812,7 +912,7 @@ def test_model_on_all(exp, test_data, current_step, log_key_prefix='test'):
             keys = sorted(k for k, v in out.items() if v.ndim == 0)
             stacked = torch.stack([out[k].float() for k in keys])
             if shard:
-                mesh_lib.all_reduce_mean_([stacked])
+                mesh_lib.all_reduce_mean_([stacked], mesh_lib.data_group())
             for k, v in zip(keys, stacked.tolist()):
                 totals[k] = (totals.get(k, 0.0) +
                              v * loader.batch_size / loader.num_entries)

@@ -18,6 +18,10 @@ global clip; here:
 - ``make_schedule``: eve_tpu's warmup and decay (``none``, ``exponential``,
   ``cyclic``) as a host function of the number of optimizer updates taken,
   with the ``reference_compat_lr_schedule`` quirk.
+
+Under the model axis (``step.shard_model``) the optimizer holds this
+rank's slices of the sharded leaves; ``clip_gradients`` is applied before
+that, to the full gradients, so it sees eve_tpu's global norm.
 """
 
 import math
@@ -107,19 +111,19 @@ def set_learning_rate(optimizer, lr):
         group['lr'] = lr * group['lr_multiplier']
 
 
-def trainable_gradients(optimizer):
-    """The gradients of the optimizer's parameters.
+def trainable_gradients(params):
+    """The gradients of ``params`` (an optimizer: its parameters).
 
     A parameter the loss does not reach (the CLSTM gates under
     ``clstm_carry_only``) gets a zero gradient, as every leaf has one in
     eve_tpu: Adam then updates it as optax does, weight decay included.
     """
-    for group in optimizer.param_groups:
-        for p in group['params']:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-    return [p.grad for group in optimizer.param_groups
-            for p in group['params']]
+    if isinstance(params, torch.optim.Optimizer):
+        params = [p for g in params.param_groups for p in g['params']]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return [p.grad for p in params]
 
 
 def clip_gradients(grads, clip_by, amount):

@@ -29,6 +29,24 @@ slices is the global batch's gradient, as eve_tpu's GSPMD step computes
 it. The 0-dim outputs are averaged over the ranks as well (one small
 all-reduce a step), so every rank logs the global batch's means and
 agrees on ``nan_flag``.
+
+On eve_tpu's grid (``parallel.mesh.make_mesh_nd``, ``TrainState.grid``):
+
+- ``seq``: the forward runs on the rank's frames with the recurrences
+  handed between ranks (``forward(seq_group=...)``), and every seq rank
+  holds the whole clips' losses; each rank's gradient is its frames' part
+  of the whole, so ``apply_update`` sums the gradients over the seq axis
+  and averages them over the data axis: one coalesced all-reduce over the
+  data x seq group, divided by the data axis's size. The 0-dim outputs are
+  averaged over the data axis only.
+- ``model`` (``TrainState.shards``, ``shard_model``): each leaf that
+  eve_tpu's rule places over the axis keeps its full value in the module,
+  so the forward is the one-process forward; the rank's optimizer holds
+  its slice of it, with that slice's Adam moments. The model ranks of a
+  data coordinate see the same frames, so each holds the full gradient
+  after the all-reduce (which never crosses the model axis); the global
+  norm of the clip is taken on it, then each rank updates its slices and
+  the slices are gathered back into the full values (``ModelShards``).
 """
 
 import dataclasses
@@ -51,11 +69,36 @@ class TrainState:
     accumulation_steps: int = 1
     step: int = 0
     data_parallel: bool = False  # average over the process group's ranks
+    grid: object = None          # the rank grid (parallel.mesh.RankGrid)
+    shards: object = None        # the model axis (parallel.mesh.ModelShards)
 
     @property
     def updates(self):
         """Optimizer updates taken so far."""
         return self.step // self.accumulation_steps
+
+    @property
+    def seq(self):
+        """The seq axis the forward splits the frames over, or None."""
+        if self.grid is None or self.grid.count('seq') == 1:
+            return None
+        return self.grid.axis('seq')
+
+    @property
+    def data_group(self):
+        """The group that averages the 0-dim outputs (None: every rank)."""
+        return self.grid.axis('data').group if self.grid else None
+
+    def leaf(self, p):
+        """The module parameter that optimizer tensor ``p`` trains (a
+        sharded leaf's full value for its slice)."""
+        return p if self.shards is None else self.shards.full(p)
+
+    def full_parameters(self):
+        """The module's parameters that the optimizer trains, in its
+        order."""
+        return [self.leaf(p) for g in self.optimizer.param_groups
+                for p in g['params']]
 
 
 def create_train_state(config, model, updates_per_epoch):
@@ -68,28 +111,47 @@ def create_train_state(config, model, updates_per_epoch):
                  else ''),
         clip_amount=config.gradient_clip_amount,
         accumulation_steps=max(int(config.gradient_accumulation_steps), 1),
-        data_parallel=mesh_lib.in_process_group())
+        data_parallel=mesh_lib.in_process_group(), grid=mesh_lib.grid())
 
 
-def scalar_outputs(out, data_parallel=False):
+def shard_model(state, min_size=4096):
+    """Put ``state``'s optimizer on the grid's model axis: each trainable
+    leaf that eve_tpu's rule places over the axis (``shard_model_tree``)
+    becomes this rank's slice of it in the optimizer, its Adam state
+    sliced alike. Call it once every rank holds the same full parameters
+    and optimizer state (after the broadcast and the resume). Returns the
+    names of the sharded leaves (all of eve_tpu's, trained or not)."""
+    grid = state.grid
+    if grid is None or grid.count('model') == 1:
+        return {}
+    placed = mesh_lib.shard_model_tree(grid, state.model, min_size=min_size)
+    state.shards = mesh_lib.ModelShards(grid.axis('model'), placed)
+    state.shards.place(state.optimizer, state.model)
+    return placed
+
+
+def scalar_outputs(out, data_parallel=False, group=None):
     """The 0-dim tensors of an output dict, detached, plus ``nan_flag``;
-    with ``data_parallel`` each is the mean over the ranks."""
+    with ``data_parallel`` each is the mean over ``group``'s ranks (every
+    rank by default; on a grid the data axis, since the seq and model ranks
+    of a data coordinate hold the same values)."""
     scalars = {k: v.detach() for k, v in out.items()
                if isinstance(v, torch.Tensor) and v.ndim == 0}
     if data_parallel:
         keys = sorted(scalars)
         stacked = torch.stack([scalars[k].float() for k in keys])
-        mesh_lib.all_reduce_mean_([stacked])
+        mesh_lib.all_reduce_mean_([stacked], group)
         scalars = dict(zip(keys, stacked.unbind()))
     scalars['nan_flag'] = torch.isnan(
         torch.stack(list(scalars.values()))).any()
     return scalars
 
 
-def accumulate_gradients(model, batch, generator=None):
+def accumulate_gradients(model, batch, generator=None, seq=None):
     """One ``forward(training=True)`` and ``full_loss.backward()``; the
-    gradients add to the parameters' ``.grad``. Returns the outputs."""
-    out = model(batch, training=True, generator=generator)
+    gradients add to the parameters' ``.grad``. Returns the outputs.
+    ``seq``: the seq axis the batch's frames are split over."""
+    out = model(batch, training=True, generator=generator, seq_group=seq)
     out['full_loss'].backward()
     return out
 
@@ -103,14 +165,15 @@ def train_step(state, batch, generator=None):
     """
     model = state.model
     model.train()
-    out = accumulate_gradients(model, batch, generator)
+    out = accumulate_gradients(model, batch, generator, state.seq)
     state.step += 1
     if state.step % state.accumulation_steps == 0:
         apply_update(state)
-    return scalar_outputs(out, state.data_parallel)
+    return scalar_outputs(out, state.data_parallel, state.data_group)
 
 
-def accumulate_multi_source_gradients(model, batches, generators=None):
+def accumulate_multi_source_gradients(model, batches, generators=None,
+                                      seq=None):
     """One backward of the sum of every source's ``full_loss``.
 
     ``batches`` is ``{tag: batch}`` and ``generators`` ``{tag: CPU
@@ -122,7 +185,7 @@ def accumulate_multi_source_gradients(model, batches, generators=None):
     scalars = {}
     for tag in sorted(batches):
         out = model(batches[tag], training=True,
-                    generator=(generators or {}).get(tag))
+                    generator=(generators or {}).get(tag), seq_group=seq)
         for k, v in out.items():
             if isinstance(v, torch.Tensor) and v.ndim == 0:
                 scalars['%s/%s' % (tag, k)] = v
@@ -138,28 +201,41 @@ def multi_source_train_step(state, batches, generators=None):
     outputs prefixed ``<tag>/``, the summed ``full_loss`` and a
     ``nan_flag`` over them all."""
     state.model.train()
-    out = accumulate_multi_source_gradients(state.model, batches, generators)
+    out = accumulate_multi_source_gradients(state.model, batches, generators,
+                                            state.seq)
     state.step += 1
     if state.step % state.accumulation_steps == 0:
         apply_update(state)
-    return scalar_outputs(out, state.data_parallel)
+    return scalar_outputs(out, state.data_parallel, state.data_group)
 
 
 def apply_update(state):
-    """One optimizer update from the summed gradients: average them over
-    the ranks and the micro-steps, clip, set the LR of update
-    ``state.updates - 1``, step Adam and clear the gradients."""
+    """One optimizer update from the summed gradients: reduce them over the
+    ranks (a mean; on a grid a sum over seq and a mean over data) and
+    average them over the micro-steps, clip, set the LR of update
+    ``state.updates - 1``, step Adam (on this rank's slices under the model
+    axis, then gather them) and clear the gradients."""
     optimizer = state.optimizer
-    grads = optim_lib.trainable_gradients(optimizer)
+    params = state.full_parameters()
+    grads = optim_lib.trainable_gradients(params)
     if state.data_parallel:
-        mesh_lib.all_reduce_mean_(grads)
+        if state.grid is None:
+            mesh_lib.all_reduce_mean_(grads)
+        else:
+            mesh_lib.all_reduce_(grads, state.grid.data_seq,
+                                 state.grid.count('data'))
     if state.accumulation_steps > 1:
         torch._foreach_div_(grads, float(state.accumulation_steps))
     if state.clip_by:
         optim_lib.clip_gradients(grads, state.clip_by, state.clip_amount)
     optim_lib.set_learning_rate(optimizer, state.schedule(state.updates - 1))
-    optimizer.step()
+    if state.shards is None:
+        optimizer.step()
+    else:
+        state.shards.step(optimizer)
     optimizer.zero_grad(set_to_none=True)
+    for p in params:
+        p.grad = None
 
 
 def eval_step(model, batch, create_images=False):

@@ -20,6 +20,9 @@ native EyeNet has ``stem_conv``, a native RefineNet ``stem``.
 ``eve_params`` is the inverse: a state dict of the port's ``EVE`` back to
 eve_tpu's tree, which the checkpoint writer stores in eve_tpu's layout.
 Both directions only transpose float32 arrays, so a round trip is exact.
+``eve_layouts`` reads off that map each parameter's eve_tpu shape and the
+torch dim that holds eve_tpu's last dim (the model axis's placement rule
+applies to eve_tpu's shapes).
 """
 
 import numpy as np
@@ -268,4 +271,49 @@ def eve_params(state_dict):
     out = {'eye_net': eye_net_params(subs['eye_net'])}
     if 'refine_net' in subs:
         out['refine_net'] = refine_net_params(subs['refine_net'])
+    return out
+
+
+def _tree_leaves(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _tree_leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def eve_layouts(state_dict):
+    """``{name: (eve_tpu shape, torch dim)}`` of a state dict of the port's
+    ``EVE``: the shape of the leaf that ``eve_params`` makes of each
+    parameter, and the torch dim that becomes that leaf's last dim (None
+    for a 0-dim leaf or a last dim of size 1, which no axis splits).
+
+    Read off the weight map itself: each parameter goes through the map
+    alone as a probe holding its own flat indices, so the last dim's step
+    in the probe is the stride of the torch dim it came from.
+    """
+    subs = {}
+    for key, v in state_dict.items():
+        prefix, rest = key.split('.', 1)
+        subs.setdefault(prefix, {})[rest] = tuple(v.shape)
+    out = {}
+    for which, shapes in subs.items():
+        if which == 'eye_net':
+            to_tree = eye_net_params
+        elif 'stem.weight' in shapes:
+            to_tree = refine_net_tpu_params
+        else:
+            to_tree = refine_net_params
+        for key, shape in shapes.items():
+            probe = np.arange(int(np.prod(shape)), dtype=np.float32) \
+                .reshape(shape)
+            ((_, leaf),) = _tree_leaves(to_tree({key: probe}))
+            dim = None
+            if leaf.ndim and leaf.shape[-1] > 1:
+                step = leaf[(0,) * (leaf.ndim - 1) + (1,)] - leaf.flat[0]
+                strides = np.cumprod((1,) + shape[::-1])[-2::-1]
+                dim = next(d for d in range(len(shape))
+                           if shape[d] == leaf.shape[-1] and
+                           strides[d] == step)
+            out['%s.%s' % (which, key)] = (tuple(leaf.shape), dim)
     return out

@@ -168,15 +168,13 @@ def test_init_stream_state_shapes(specs, model):
 
 
 def test_config_keys_cover_eve_tpu():
-    """Every eve_tpu key is read by the port, deferred, or raises unless
-    at its default: exactly one of the three."""
+    """Every eve_tpu key is read by the port or deferred: exactly one of
+    the two (no key raises unless at its default any longer)."""
     port = set(tconfig.Config.keys())
-    unimplemented = set(tconfig.UNIMPLEMENTED_KEYS)
     assert not port & tconfig.DEFERRED_KEYS
-    assert not (port | tconfig.DEFERRED_KEYS) & unimplemented
     DefaultConfig._reset_instance_for_testing()
     try:
-        assert port | tconfig.DEFERRED_KEYS | unimplemented == set(
+        assert port | tconfig.DEFERRED_KEYS == set(
             DefaultConfig().get_all_key_values())
     finally:
         DefaultConfig._reset_instance_for_testing()

@@ -215,7 +215,9 @@ def test_gather_rows():
 def _config(**overrides):
     return types.SimpleNamespace(**dict(dict(
         tpu_num_devices=0, tpu_multihost=False, tpu_num_processes=0,
-        batch_size=8, gradient_accumulation_steps=1), **overrides))
+        batch_size=8, gradient_accumulation_steps=1,
+        tpu_model_parallelism=1, tpu_sequence_shards=1,
+        max_sequence_len=30), **overrides))
 
 
 def test_launcher_spawns_one_worker_a_device(monkeypatch, caplog):

@@ -91,9 +91,11 @@ def test_remat_typos_raise_and_the_cli_takes_booleans():
         DefaultConfig._reset_instance_for_testing()
     spec = teve.EveSpec.from_config(config)
     assert spec.remat_eye and spec.remat_refine
-    # The seq and model mesh axes (Slice J) stay unimplemented.
-    assert set(tconfig.UNIMPLEMENTED_KEYS) == {
-        'tpu_sequence_shards', 'tpu_model_parallelism'}
+    # The seq and model mesh axes are real keys with eve_tpu's defaults;
+    # no key of eve_tpu's raises unless at its default any longer.
+    assert (tconfig.Config().tpu_sequence_shards,
+            tconfig.Config().tpu_model_parallelism) == (1, 1)
+    assert not hasattr(tconfig, 'UNIMPLEMENTED_KEYS')
 
 
 def _case(name):

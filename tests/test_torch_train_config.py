@@ -39,8 +39,6 @@ def test_defaults_are_eve_tpus(reference):
     ours = tconfig.Config().get_all_key_values()
     theirs = reference.get_all_key_values()
     assert {k: v for k, v in ours.items() if theirs[k] != v} == {}
-    for k, v in tconfig.UNIMPLEMENTED_KEYS.items():
-        assert v == theirs[k], k
 
 
 @pytest.mark.parametrize('name', ['eye_net.json', 'refine_net.json'])
@@ -62,12 +60,13 @@ def test_learning_rate_is_derived():
         cfg.import_dict({'learning_rate': 'fast'})
 
 
-# One case per group of training options of later slices. Remat is
-# implemented (tests/test_torch_remat.py): its case holds a value outside
-# eve_tpu's set, which raises eve_tpu's ValueError instead. Multi-host is
-# implemented (tests/test_torch_parallel_train.py): its case is accepted,
-# and a badly typed value raises as for any key. The sequence mesh and
-# model parallelism are Slice J.
+# One case per group of training options that earlier slices left raising;
+# every one is implemented now. Remat (tests/test_torch_remat.py): a value
+# outside eve_tpu's set raises eve_tpu's ValueError. Multi-host
+# (tests/test_torch_parallel_train.py), the sequence mesh and model
+# parallelism (tests/test_torch_parallel_{seq,model}.py): eve_tpu's values
+# are accepted and a badly typed value raises as for any key; a grid that
+# cannot form raises eve_tpu's ValueError.
 UNIMPLEMENTED_GROUPS = {
     'remat': {'tpu_remat': 'full'},
     'sequence mesh': {'tpu_sequence_shards': 2},
@@ -80,23 +79,27 @@ UNIMPLEMENTED_GROUPS = {
 def test_unimplemented_keys_raise_unless_default(group):
     ((key, value),) = UNIMPLEMENTED_GROUPS[group].items()
     cfg = tconfig.Config()
+    assert not hasattr(tconfig, 'UNIMPLEMENTED_KEYS')
     if key == 'tpu_remat':
-        assert key not in tconfig.UNIMPLEMENTED_KEYS
         cfg.import_dict({key: 'refine'})  # accepted
         with pytest.raises(ValueError, match=key):
             cfg.import_dict({key: value})
         return
     if key == 'tpu_multihost':
-        assert key not in tconfig.UNIMPLEMENTED_KEYS
         cfg.import_dict({key: value, 'tpu_coordinator_address': 'h0:1234',
                          'tpu_num_processes': 2, 'tpu_process_id': 1})
         assert cfg.tpu_multihost and cfg.tpu_process_id == 1
         with pytest.raises(TypeError, match='tpu_num_processes'):
             cfg.import_dict({'tpu_num_processes': '2'})
         return
-    cfg.import_dict({key: tconfig.UNIMPLEMENTED_KEYS[key]})  # accepted
-    with pytest.raises(NotImplementedError, match='Slice J'):
-        cfg.import_dict({key: value})
+    cfg.import_dict({key: value})  # eve_tpu's value is accepted
+    assert getattr(cfg, key) == value
+    with pytest.raises(TypeError, match=key):
+        cfg.import_dict({key: '2'})
+    axis = {'tpu_sequence_shards': 'seq', 'tpu_model_parallelism': 'model'}
+    assert harness.training_grid(cfg, 4) == {'data': 2, axis[key]: 2}
+    with pytest.raises(ValueError, match='needs 2 devices, have 1'):
+        harness.training_grid(cfg, 1)
 
 
 class _Sheet:

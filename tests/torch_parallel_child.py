@@ -18,7 +18,15 @@ stdout: gloo writes its own lines into stdout.
   which starts the two workers itself; ``fail_rank`` makes that worker's
   dataset raise;
 - ``multihost``: ``harness.init_process_group`` from the ``tpu_multihost``
-  keys, then the group's collectives.
+  keys, then the group's collectives;
+- ``grid``: one rank of eve_tpu's grid (``make_mesh_nd(axes)``, ranks
+  started from the coordinator keys): an update of ``train_step`` on its
+  data coordinate's rows and seq coordinate's frames (the model axis's
+  slices placed by ``step.shard_model``), optionally after resuming a
+  checkpoint (``resume``), then optionally a checkpoint (every rank joins,
+  rank 0 writes) and the seq-sharded eval forward with its states;
+- ``scan``: ``temporal.sharded_scan`` of a GRU-like step over a seq axis,
+  its outputs, final carry and input gradient.
 """
 
 import json
@@ -32,10 +40,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, 'configs', 'refine_net.json')
 
 
-def _config(overrides):
+def _config(overrides, path=CONFIG):
     from eve_tpu_torch import config as tconfig
     cfg = tconfig.Config()
-    cfg.import_json(CONFIG)
+    cfg.import_json(path)
     cfg.import_dict(overrides)
     return cfg
 
@@ -214,7 +222,87 @@ def multihost(args):
     mesh_lib.shutdown()
 
 
+def grid(args):
+    """One rank of eve_tpu's grid: one update, a checkpoint, an eval."""
+    from eve_tpu_torch.models import eve as teve
+    from eve_tpu_torch.parallel import mesh as mesh_lib
+    from eve_tpu_torch.parallel import temporal
+    from eve_tpu_torch.train import checkpoint as tckpt
+    from eve_tpu_torch.train import step as tstep
+    torch.set_num_threads(1)
+    rank, world = args['rank'], args['world']
+    mesh_lib.initialize_multihost(args['address'], world, rank,
+                                  backend='gloo')
+    g = mesh_lib.make_mesh_nd(args['axes'])
+    inputs = torch.load(os.path.join(args['dir'], 'inputs.pt'),
+                        weights_only=False)
+    tc = _config(inputs['overrides'],
+                 os.path.join(ROOT, 'configs', inputs['json_name']))
+    model = teve.build_model(teve.EveSpec.from_config(tc),
+                             inputs['state_dict'], 'cpu')
+    st = tstep.create_train_state(tc, model, inputs['updates_per_epoch'])
+    if args.get('resume'):
+        tckpt.CheckpointManager(args['resume']).load_last_checkpoint(st)
+    placed = tstep.shard_model(st, min_size=args['min_size'])
+    full = inputs[args.get('batch', 'batch')]
+    B = next(iter(full.values())).shape[0] // g.count('data')
+    rows = {k: v[g.index('data') * B:(g.index('data') + 1) * B]
+            for k, v in full.items()}
+    tbatch = temporal.local_frames(teve.batch_to_tensors(rows, 'cpu'),
+                                   st.seq)
+    out = {}
+    if args.get('eval'):  # with the initial weights
+        with torch.no_grad():
+            model.eval()
+            o = model(tbatch, seq_group=st.seq, return_states=True)
+        out['eval'] = {k: float(v) for k, v in o.items()
+                       if torch.is_tensor(v) and v.ndim == 0}
+        out['states'] = o['states']
+    metrics = tstep.train_step(st, tbatch)
+    out.update({'metrics': {k: float(v) for k, v in metrics.items()},
+           'params': {k: v.clone() for k, v in model.state_dict().items()},
+           'placed': placed, 'coords': g.coords,
+           'slices': {name: tuple(p.shape) for name, p in (
+               st.shards.slices().items() if st.shards else ())}})
+    if args.get('save'):
+        tckpt.CheckpointManager(args['save']).save_at_step(
+            st.step, st, write=rank == 0)
+    torch.save(out, os.path.join(args['dir'], 'rank%d.pt' % rank))
+    mesh_lib.shutdown()
+
+
+def scan(args):
+    """``sharded_scan`` of a GRU-like step, forward and input gradient."""
+    from eve_tpu_torch.parallel import mesh as mesh_lib
+    from eve_tpu_torch.parallel import temporal
+    torch.set_num_threads(1)
+    rank = args['rank']
+    mesh_lib.initialize_multihost(args['address'], args['world'], rank,
+                                  backend='gloo')
+    g = mesh_lib.make_mesh_nd(args['axes'])
+    inputs = torch.load(os.path.join(args['dir'], 'scan.pt'))
+    W = inputs['W']
+    xs = {k: v.clone().requires_grad_(True) for k, v in inputs['xs'].items()}
+
+    def step(carry, x):
+        h = torch.tanh(carry['h'] @ W + x['u']) * x['gate'] + \
+            carry['h'] * (1 - x['gate'])
+        return ({'h': h, 'count': carry['count'] + 1.0},
+                {'out': h * 2.0, 'norm': (h ** 2).sum(-1)})
+
+    carry, ys = temporal.sharded_scan(
+        step, inputs['carry'], xs, g,
+        batch_axis='data' if 'data' in args['axes'] else None, params=[W])
+    (ys['out'].sum() + ys['norm'].sum()).backward()
+    torch.save({'carry': carry, 'ys': {k: v.detach() for k, v in ys.items()},
+                'grad': {k: v.grad for k, v in xs.items()},
+                'coords': g.coords},
+               os.path.join(args['dir'], 'scan%d.pt' % rank))
+    mesh_lib.shutdown()
+
+
 if __name__ == '__main__':
     sys.path.insert(0, ROOT)
     {'steps': steps, 'train': train, 'launch': launch,
-     'multihost': multihost}[sys.argv[1]](json.loads(sys.argv[2]))
+     'multihost': multihost, 'grid': grid, 'scan': scan}[sys.argv[1]](
+         json.loads(sys.argv[2]))
