@@ -176,7 +176,21 @@
    the CPU tests' Adam-update limits (the L2 ratio printed), both kernels'
    launches on every rank, the step wall and each rank's peak; and the
    kernels timed at the per-rank N = 120.
-14. Prints the kernel table as one JSON line, the card, and last
+14. Slice K phase (``slice_k_phase``, last): (a) the training phase's
+   step-4 checkpoint copied without ``optimizer_torch.npz`` and resumed
+   from eve_tpu's ``optimizer_0.npz`` alone in a fresh ``Experiment``:
+   the Adam state bitwise that of the port's file, steps 5-8 within
+   ``RESUME_LOSS_TOL`` of the port file's resume, render 3 and
+   soft-argmax 1 launches a step; (b) save, then read back through
+   ``optimizer_0.npz`` alone, bitwise, of the eye-net phase's
+   ``configs/eye_net.json`` state and of a ``configs/refine_net.json``
+   state one micro-step into an update of two; (c) a checkpoint's bytes
+   and ``save_at_step(wait=True)`` seconds with and without the file; (d)
+   one adversarial B = 8, T = 10 batch through ``ServingEngine``, one
+   launch of each kernel a dispatch. ``write_synthetic_dataset`` and
+   ``AsyncVideoReader`` need ``h5py``, ``cv2`` or ``ffmpeg``, which the
+   card's machine lacks: the CPU tests hold them.
+15. Prints the kernel table as one JSON line, the card, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the run exits non-zero without the last line.
@@ -1205,7 +1219,7 @@ def training_phase(hk, card):
         'changed (unchanged: %s); checkpoints %s holding %s'
         % (n_refine - len(unchanged), n_refine, unchanged, ckpts, files))
     if ckpts != ['%07d.ckpt' % SAVE_EVERY, '%07d.ckpt' % TRAIN_STEPS] or \
-            files != ['eye_net.npz', 'optimizer_torch.npz',
+            files != ['eye_net.npz', 'optimizer_0.npz', 'optimizer_torch.npz',
                       'refine_net.npz']:
         raise AssertionError('checkpoints: %s %s' % (ckpts, files))
 
@@ -1250,7 +1264,8 @@ def training_phase(hk, card):
     compare_card_cpu(exp.spec, card)
     return {'launches': launches, 'per_step': per_step,
             'per_eval_batch': per_eval, 'step_ms': 1e3 * step_s,
-            'peak': peak, 'busy': busy}
+            'peak': peak, 'busy': busy, 'exp': exp, 'resumed': resumed,
+            'train_sets': train_sets, 'test_sets': test_sets}
 
 
 # ---------------------------------------------------------------------------
@@ -1428,7 +1443,8 @@ def preempt_and_resume():
     ckpt = os.path.join(run_dir, 'checkpoints', '%07d.ckpt' % stop)
     files = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
     if stop != len(before['losses']) or files != [
-            'eye_net.npz', 'optimizer_torch.npz', 'refine_net.npz']:
+            'eye_net.npz', 'optimizer_0.npz', 'optimizer_torch.npz',
+            'refine_net.npz']:
         raise AssertionError('preemption checkpoint %s holds %s after %d '
                              'steps' % (ckpt, files, len(before['losses'])))
     log('train-cli: SIGTERM after the log showed step %d: exit 143 %.2f s '
@@ -1718,7 +1734,7 @@ def eye_net_phase(hk, card, compute_dtype='float32', native=False):
     if compute_dtype == 'float32':
         eye_net_card_vs_cpu(exp.spec, card, what)
     return {'step_ms': 1e3 * step_s, 'peak': peak, 'launches': launches,
-            'busy': busy}
+            'busy': busy, 'state': exp.state}
 
 
 def train_cli_phase(hk, card):
@@ -3910,6 +3926,242 @@ def grid_phase(hk):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice K: eve_tpu's optimizer file and the adversarial appearance
+# ---------------------------------------------------------------------------
+
+SLICE_K_OUT = os.path.join(ROOT, 'build', 'chip_smoke_slice_k')
+COST_REPEATS = 3
+
+
+def optimizer_snapshot(state):
+    """The optimizer part of a checkpoint snapshot: Adam's state and any
+    partial gradients, CPU tensors by name."""
+    from eve_tpu_torch.train import checkpoint as ckpt_lib
+    return ckpt_lib.snapshot(state)[1]
+
+
+def hold_bitwise(got, want, what):
+    if sorted(got) != sorted(want):
+        raise AssertionError('%s: keys %s vs %s' % (what, sorted(got)[:4],
+                                                    sorted(want)[:4]))
+    for k, v in want.items():
+        if got[k].dtype != v.dtype or not torch.equal(got[k], v):
+            raise AssertionError('%s: %s differs' % (what, k))
+
+
+def optax_only_copy(src, run_dir):
+    """``src`` copied as the one checkpoint of ``run_dir`` without the
+    port's optimizer file; returns the copy's path."""
+    from eve_tpu_torch.train import checkpoint as ckpt_lib
+    dst = os.path.join(run_dir, 'checkpoints', os.path.basename(src))
+    shutil.rmtree(run_dir, ignore_errors=True)
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns(
+        ckpt_lib.OPTIMIZER_FILE))
+    return dst
+
+
+def optax_round_trip(state, what):
+    """Save ``state``, then read its optimizer back from optimizer_0.npz
+    alone into the same state, its Adam state cleared first; the state
+    must come back bitwise. Returns the optax file's bytes."""
+    from eve_tpu_torch.train import checkpoint as ckpt_lib
+    run_dir = os.path.join(SLICE_K_OUT, what.replace(' ', '_'))
+    shutil.rmtree(run_dir, ignore_errors=True)
+    want = optimizer_snapshot(state)
+    saved = ckpt_lib.CheckpointManager(run_dir).save_at_step(state.step,
+                                                             state)
+    path = optax_only_copy(saved, run_dir + '_optax')
+    state.optimizer.state.clear()
+    for p in state.full_parameters():
+        p.grad = None
+    ckpt_lib.CheckpointManager(run_dir + '_optax').load(path, state)
+    got = optimizer_snapshot(state)
+    # optax keeps a zero gradient where the port kept none (a parameter
+    # the micro-steps' losses did not reach): it reads back as zeros.
+    for k in [k for k in got if k.startswith('grad/') and k not in want]:
+        if torch.count_nonzero(got.pop(k)):
+            raise AssertionError('%s: %s was no gradient, reads back '
+                                 'non-zero' % (what, k))
+    hold_bitwise(got, want, what)
+    nbytes = os.path.getsize(os.path.join(path, ckpt_lib.OPTAX_OPTIMIZER_FILE))
+    log('slice-k: %s at micro-step %d (%d updates): optimizer state read back '
+        'from %s alone, bitwise (%d tensors, %d partial gradients); the file '
+        '%.2f MB' % (what, state.step, state.updates,
+                     ckpt_lib.OPTAX_OPTIMIZER_FILE, len(want),
+                     sum(k.startswith('grad/') for k in want), nbytes / 1e6))
+    return nbytes
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def checkpoint_cost(state):
+    """``save_at_step(wait=True)`` of ``state`` with eve_tpu's
+    optimizer_0.npz and without it (a snapshot and the write of the other
+    files), alternated ``COST_REPEATS`` times; the medians and the
+    checkpoint's bytes."""
+    from eve_tpu_torch.train import checkpoint as ckpt_lib
+    run_dir = os.path.join(SLICE_K_OUT, 'cost')
+    shutil.rmtree(run_dir, ignore_errors=True)
+    manager = ckpt_lib.CheckpointManager(run_dir, keep_n=1)
+    times = {'with': [], 'without': []}
+    nbytes = {}
+    for _ in range(COST_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = manager.save_at_step(state.step, state, wait=True)
+        times['with'].append(time.perf_counter() - t0)
+        nbytes['with'] = dir_bytes(path)
+        t0 = time.perf_counter()
+        params, opt = ckpt_lib.snapshot(state)
+        path = manager._write(state.step, params, opt, None)
+        times['without'].append(time.perf_counter() - t0)
+        nbytes['without'] = dir_bytes(path)
+    out = {k: {'save_s': float(np.median(v)), 'bytes': nbytes[k]}
+           for k, v in times.items()}
+    log('slice-k: checkpoint of configs/refine_net.json at step %d, '
+        'save_at_step(wait=True), median of %d: with optimizer_0.npz %.3f s, '
+        '%d bytes; without it %.3f s, %d bytes (+%d bytes, +%.3f s); each '
+        'save s %s (%s)' % (
+            state.step, COST_REPEATS, out['with']['save_s'],
+            out['with']['bytes'], out['without']['save_s'],
+            out['without']['bytes'],
+            out['with']['bytes'] - out['without']['bytes'],
+            out['with']['save_s'] - out['without']['save_s'],
+            json.dumps(times), card_line()))
+    return out
+
+
+def adversarial_serve(hk):
+    """(d): one adversarial B = 8, T = 10 batch through the engine."""
+    from eve_tpu_torch.config import Config
+    from eve_tpu_torch.data.synthetic import make_synthetic_batch
+    from eve_tpu_torch.models import eve as eve_lib
+    from eve_tpu_torch.serve import ServingEngine
+
+    config = Config()
+    config.import_json(CONFIG)
+    spec = eve_lib.EveSpec.from_config(config)
+    with torch.device('meta'):
+        skeleton = eve_lib.EVE(spec)
+    engine = ServingEngine(spec, random_state_dict(skeleton), device='cuda',
+                           max_batch=MAX_BATCH, max_delay_ms=20.0)
+    try:
+        batch = make_synthetic_batch(
+            np.random.RandomState(51), batch_size=MAX_BATCH, sequence_len=T,
+            eyes_size=128, frame_dtype=np.uint8, appearance='adversarial')
+        clips = [{k: v[i] for k, v in batch.items()
+                  if not k.endswith(LABEL_SUFFIXES)}
+                 for i in range(MAX_BATCH)]
+        engine.infer(clips[0], timeout=600)  # warm-up
+        torch.cuda.synchronize()
+        batches = engine.get_stats()['batches']
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        futures = [engine.submit(c) for c in clips]
+        results = [f.result(timeout=600) for f in futures]
+        wall = time.perf_counter() - t0
+        launches = dict(hk.LAUNCHES)
+        dispatches = engine.get_stats()['batches'] - batches
+    finally:
+        engine.stop()
+    for i, out in enumerate(results):
+        check_outputs(out, T, 'adversarial clip %d' % i)
+    log('slice-k: adversarial B=%d T=%d through ServingEngine(device='
+        "'cuda'): %d dispatches, %.1f ms, kernel launches %s, outputs "
+        'finite' % (MAX_BATCH, T, dispatches, 1e3 * wall, launches))
+    if dispatches == 0 or any(launches[name] != dispatches
+                              for name in launches):
+        raise AssertionError('adversarial serving: launches %s over %d '
+                             'dispatches' % (launches, dispatches))
+    return launches
+
+
+def slice_k_phase(hk, card, train, eye_state):
+    """Slice K on the card: (a) the training phase's step-4 checkpoint
+    without the port's optimizer file, resumed from eve_tpu's
+    optimizer_0.npz alone; (b) round trips through optimizer_0.npz; (c)
+    the checkpoint's cost with and without it; (d) adversarial serving."""
+    from eve_tpu_torch.data.synthetic import make_synthetic_batch
+    from eve_tpu_torch.models import eve as eve_lib
+    from eve_tpu_torch.train import checkpoint as ckpt_lib
+    from eve_tpu_torch.train import harness
+    from eve_tpu_torch.train import step as step_lib
+
+    shutil.rmtree(SLICE_K_OUT, ignore_errors=True)
+    exp = train['exp']
+    src = os.path.join(exp.output_dir, 'checkpoints', '%07d.ckpt' % SAVE_EVERY)
+    run_dir = os.path.join(SLICE_K_OUT, 'resumed_optax')
+    copy = optax_only_copy(src, run_dir)
+    # The Adam state each file gives, loaded into the training state.
+    manager = ckpt_lib.CheckpointManager(os.path.dirname(src))
+    manager.load(src, exp.state)
+    want = optimizer_snapshot(exp.state)
+    exp.state.optimizer.state.clear()
+    manager.load(copy, exp.state)
+    hold_bitwise(optimizer_snapshot(exp.state), want,
+                 'Adam state from optimizer_0.npz vs optimizer_torch.npz')
+    # --- the resumed run, counted ---
+    (_, losses, _), launches = counted(hk, lambda: run_training(
+        train_config(), train['train_sets'], train['test_sets'], card,
+        resume_from=run_dir))
+    # --- end of the counted run ---
+    steps = len(losses)
+    eval_batches = -(-VAL_CLIPS // TRAIN_B)   # the validation at step 8
+    wanted = {'render_heatmaps': 3 * steps + 2 * eval_batches,
+              'soft_argmax': steps + eval_batches}
+    if sorted(losses) != list(range(SAVE_EVERY, TRAIN_STEPS)) or \
+            launches != wanted:
+        raise AssertionError('resume from optimizer_0.npz: steps %s, '
+                             'launches %s (want %s)' % (sorted(losses),
+                                                        launches, wanted))
+    a = np.array([train['resumed'][k] for k in sorted(losses)])
+    b = np.array([losses[k] for k in sorted(losses)])
+    np.testing.assert_allclose(
+        b, a, **RESUME_LOSS_TOL,
+        err_msg='resumed from optimizer_0.npz vs from optimizer_torch.npz')
+    log('slice-k: resumed from %s alone (Adam state bitwise that of %s): '
+        'steps %d-%d full_loss %s vs the port file\'s resume %s, max rel '
+        'err %.3g (limit rtol %g); kernel launches %s (render 3 and '
+        'soft-argmax 1 a step, 2 and 1 an eval batch)'
+        % (ckpt_lib.OPTAX_OPTIMIZER_FILE, ckpt_lib.OPTIMIZER_FILE,
+           SAVE_EVERY + 1, TRAIN_STEPS, ', '.join('%.6f' % x for x in b),
+           ', '.join('%.6f' % x for x in a),
+           float(np.max(np.abs(b - a) / np.abs(a))),
+           RESUME_LOSS_TOL['rtol'], launches))
+
+    # (b) round trips: eye_net.json's flat chain with weight decay, and a
+    # refine_net.json state one micro-step into an update of two.
+    eye_bytes = optax_round_trip(eye_state, 'eye_net.json state')
+    config = train_config(gradient_accumulation_steps=2)
+    model = eve_lib.init_model(exp.spec, torch.Generator().manual_seed(3),
+                               card)
+    state = step_lib.create_train_state(config, model, 4)
+    batch = eve_lib.batch_to_tensors(make_synthetic_batch(
+        np.random.RandomState(52), batch_size=TRAIN_B // 2,
+        sequence_len=TRAIN_T, eyes_size=128, frame_dtype=np.uint8), card)
+    for i in range(3):
+        step_lib.train_step(state, batch, harness.kappa_generator(0, i))
+    if state.step % state.accumulation_steps != 1:
+        raise AssertionError('micro-step %d' % state.step)
+    accum_bytes = optax_round_trip(state, 'mid-accumulation state')
+
+    # (c) what the file costs a checkpoint of configs/refine_net.json.
+    cost = checkpoint_cost(exp.state)
+    log('slice-k: optimizer_0.npz of the eye_net.json state %.2f MB, of the '
+        'mid-accumulation refine_net.json state %.2f MB'
+        % (eye_bytes / 1e6, accum_bytes / 1e6))
+    serve_launches = adversarial_serve(hk)
+    log('slice-k: write_synthetic_dataset and AsyncVideoReader are held '
+        'against eve_tpu by the CPU tests only: the card\'s machine has no '
+        'h5py, cv2 or ffmpeg')
+    return {'launches': launches, 'serve_launches': serve_launches,
+            'cost': cost}
+
+
 def harness_config(config, batch):
     """The port config of a grid or data-parallel child run."""
     from eve_tpu_torch.cli import common
@@ -3976,6 +4228,8 @@ def main():
     mesh_eval = timed('mesh eval', mesh_eval_phase, hk, card0)
     dp_train = timed('dp train', dp_train_phase, hk)
     grid_train = timed('grid', grid_phase, hk)
+    slice_k = timed('slice-k', slice_k_phase, hk, card0, train,
+                    cli['eye_net']['state'])
     timings_rank = kernel_timings(hk, GRID_RANK_N)
     log('kernel times at N=%d, the frames of a seq = 2 rank: %s'
         % (GRID_RANK_N, card_line()))
@@ -4021,6 +4275,10 @@ def main():
     # on its frames (eye_net.json: none); summed over the ranks.
     for name, counts in grid_train['launches'].items():
         new_paths['grid_%s_train_launches' % name] = counts
+    # Slice K: the run resumed from optimizer_0.npz alone (render 3 and
+    # soft-argmax 1 a step) and the adversarial dispatch (1 and 1).
+    new_paths['optax_resume_train_launches'] = slice_k['launches']
+    new_paths['adversarial_serve_launches'] = slice_k['serve_launches']
 
     source = 'eve_tpu_torch/csrc/heatmap_kernels.cu'
     replaces = {'render_heatmaps': 'eve_tpu/kernels/heatmap_kernels.py:38',

@@ -18,19 +18,21 @@ Several GPUs (one worker process a GPU, on eve_tpu's grid: the data axis,
 and the model and seq axes of ``--tpu-model-parallelism`` and
 ``--tpu-sequence-shards``):
 
-- ``--tpu-num-devices N`` (0, the default, is every visible card) takes
-  eve_tpu's rule: the model and seq axes claim their cards first, the data
-  axis is the largest count of the rest that divides the per-step batch;
-  it starts that many workers with ``torch.multiprocessing``,
-  worker r on ``cuda:r``, meeting on localhost; the command's exit code is
-  the workers' (143 when they were preempted, another non-zero code when
-  one failed, after the others are stopped);
+- ``--tpu-num-devices N`` (0, the default, is every visible card of every
+  host) takes eve_tpu's rule: the model and seq axes claim their cards
+  first, the data axis is the largest count of the rest that divides the
+  per-step batch; it starts that many workers with
+  ``torch.multiprocessing``, worker r on ``cuda:r``, meeting on localhost;
+  the command's exit code is the workers' (143 when they were preempted,
+  another non-zero code when one failed, after the others are stopped);
 - under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
   ``MASTER_PORT`` set) nothing is started: the process is the rank the
   environment names, on ``cuda:<LOCAL_RANK>``;
 - several hosts: ``--tpu-multihost yes --tpu-coordinator-address
   <host 0>:<port> --tpu-num-processes <hosts> --tpu-process-id <this
-  host>``, the same command on every host; each host starts its workers.
+  host>``, the same command on every host; eve_tpu's grid spans every
+  host's cards, and each host starts its share of the ranks (a grid that
+  does not split evenly over the hosts raises).
 
 ``main`` parses the command line and builds eve_tpu's dataset specs;
 ``run`` takes a config, a device and the specs, and does the rest, so any
@@ -60,20 +62,29 @@ FAILED_WORKER_GRACE_S = 10.0
 
 def worker_count(config, device, env=None):
     """How many workers to start on this host, or None to train in this
-    process (one device, or a process that is already a rank). A grid
-    that cannot form raises eve_tpu's ``ValueError``s
-    (``harness.training_grid``)."""
+    process (one device, or a process that is already a rank).
+
+    The grid is eve_tpu's (``harness.training_grid``) over every host's
+    devices and the global per-step batch: ``tpu_num_devices`` when set,
+    else the hosts times this host's cards. Each host starts its share of
+    the grid's ranks. A grid that cannot form raises eve_tpu's
+    ``ValueError``s; one that does not split evenly over the hosts raises
+    too, naming the grid and the hosts."""
     env = os.environ if env is None else env
     if mesh_lib.launched_by_torchrun(env) or 'LOCAL_RANK' in env:
         return None
     device = torch.device(device)
     visible = torch.cuda.device_count() if device.type == 'cuda' else 1
-    available = config.tpu_num_devices or visible
-    hosts = config.tpu_num_processes if config.tpu_multihost else 1
-    step_batch = config.batch_size // max(
-        int(config.gradient_accumulation_steps), 1) // max(hosts, 1)
-    axes = harness.training_grid(config, available, step_batch)
-    count = int(np.prod(list(axes.values())))
+    hosts = max(int(config.tpu_num_processes), 1) if config.tpu_multihost \
+        else 1
+    available = config.tpu_num_devices or hosts * visible
+    axes = harness.training_grid(config, available)
+    total = int(np.prod(list(axes.values())))
+    if total % hosts:
+        raise ValueError(
+            "eve_tpu's grid %s of %d ranks does not split over the %d hosts"
+            % (axes, total, hosts))
+    count = total // hosts
     if count == 1:
         return None
     if device.type == 'cuda':

@@ -1,8 +1,8 @@
 """Frame-exact video decode on the host.
 
-A copy of the synchronous reader of ``eve_tpu/data/video.py``, which keeps
-the reference's semantics (src/datasources/common.py:50-172) with two
-backends:
+A copy of ``eve_tpu/data/video.py``, which keeps the reference's semantics
+(src/datasources/common.py:50-172): the synchronous ``VideoReader`` and the
+streaming ``AsyncVideoReader``, each with two backends:
 
 * ``ffmpeg``: a raw-RGB24 subprocess pipe (used when the binary exists),
   with the reference's filter graph, ``select='eq(n,i)+...'`` frame picking
@@ -20,8 +20,7 @@ each video is cross-checked against the scan and raises on a mismatch).
 
 Timestamps come from the sibling ``*.timestamps.txt`` files with the
 reference's suffix mapping. ``cv2`` is imported where a frame is decoded
-through it, so the package imports on a machine without OpenCV; eve_tpu's
-streaming ``AsyncVideoReader`` is not ported yet (ROADMAP.md).
+through it, so the package imports on a machine without OpenCV.
 """
 
 import collections
@@ -415,3 +414,103 @@ class VideoReader:
         got = [frames[position[i]] for i in self.frame_indices
                if i in position]
         return np.stack(got) if got else self._empty_frames()
+
+
+class AsyncVideoReader:
+    """Streaming decode iterator yielding (timestamp, frame) pairs.
+
+    Mirrors the reference VideoReader's async-iterator mode
+    (src/datasources/common.py:141-172): an ffmpeg raw-RGB24 subprocess
+    pipe consumed one frame at a time — bounded memory for unbounded
+    live-stream videos — with the same ``select=eq(n,i)`` frame picking and
+    ``scale`` filter graph as the sync path, plus a cv2 fallback when no
+    ffmpeg binary exists. Usable as a context manager (the reference's
+    ``__enter__``/``__exit__``); iteration also cleans up on exhaustion.
+    """
+
+    def __init__(self, video_path, output_size=None, frame_indices=None,
+                 backend=None):
+        if frame_indices is not None:
+            idx = list(frame_indices)
+            # Streaming yields frames in stream order, so a request list
+            # with duplicates or out-of-order indices cannot be honored
+            # (the sync VideoReader supports those; use it instead).
+            # Silently set-collapsing would truncate AND mispair
+            # (timestamp, frame) tuples.
+            if any(b <= a for a, b in zip(idx, idx[1:])):
+                raise ValueError(
+                    'AsyncVideoReader needs strictly increasing '
+                    'frame_indices (got %r); use VideoReader for '
+                    'duplicate/reordered index lists' % (idx,))
+        self.reader = VideoReader(video_path, frame_indices=frame_indices,
+                                  output_size=output_size, backend=backend)
+        self.output_size = output_size
+        self.frame_indices = self.reader.frame_indices
+        self._proc = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.close()
+
+    def close(self):
+        if self._proc is not None:
+            self._proc.stdout.close()
+            self._proc.wait()
+            self._proc = None
+
+    def __iter__(self):
+        timestamps = self.reader._load_timestamps()
+        if self.frame_indices is not None:
+            selected_ts = [timestamps[i] for i in self.frame_indices]
+        else:
+            selected_ts = list(timestamps)
+        if self.reader.backend == 'ffmpeg':
+            yield from self._iter_ffmpeg(selected_ts)
+        else:
+            yield from self._iter_cv2(selected_ts)
+
+    def _seek_allowed(self, backend):
+        """Streaming iterators cannot cross-check themselves; under
+        'verify' they seek only for videos the sync reader already
+        verified for this backend, else they scan."""
+        mode = _seek_mode()
+        if mode == 'verify':
+            return _seek_verified(backend, self.reader.video_path)
+        return mode == 'on'
+
+    def _iter_ffmpeg(self, selected_ts):
+        if self.output_size is not None:
+            width, height = self.output_size
+        else:
+            width, height = self.reader._probe_size()
+        seek = self._seek_allowed('ffmpeg')
+        fps = (_probe_cfr_fps_cached(self.reader.video_path)
+               if seek and self.frame_indices
+               and min(self.frame_indices) > 0 else None)
+        cmd = ffmpeg_pipe_cmd(self.reader.video_path, self.frame_indices,
+                              self.output_size, fps, seek=seek)
+        frame_bytes = width * height * 3
+        self._proc = subprocess.Popen(cmd, stdout=subprocess.PIPE)
+        try:
+            for ts in selected_ts:
+                raw = self._proc.stdout.read(frame_bytes)
+                if len(raw) < frame_bytes:
+                    return
+                yield ts, np.frombuffer(raw, np.uint8).reshape(
+                    height, width, 3)
+        finally:
+            self.close()
+
+    def _iter_cv2(self, selected_ts):
+        # Same shared decode loop as the sync reader; frame_indices are
+        # strictly increasing (enforced in __init__), so stream order IS
+        # request order and pairs off against selected_ts directly.
+        emitted = 0
+        for _, frame in self.reader._cv2_wanted_frames(
+                use_seek=self._seek_allowed('cv2')):
+            if emitted >= len(selected_ts):
+                return
+            yield selected_ts[emitted], frame
+            emitted += 1

@@ -8,20 +8,28 @@ training steps) holding one ``<prefix>.npz`` per top-level submodule
 (``utils.convert.eve_params``). So eve_tpu's ``CheckpointManager.load``
 reads the port's parameters, and the port reads eve_tpu's.
 
-The optimizer state goes to a file of the port's own,
-``optimizer_torch.npz``: Adam's moments and step count per parameter name,
-and, mid-way through a gradient accumulation, the gradients summed so far.
-eve_tpu skips ``optimizer_*`` files when it reads parameters. A run of the
-port resumes exactly. A run of eve_tpu resumes with its optax state from
-``optimizer_0.npz`` (``optax_optimizer_tree``): every ``scale_by_adam``
+The optimizer state goes to two files. ``optimizer_torch.npz`` is the
+port's own: Adam's moments and step count per parameter name, and, mid-way
+through a gradient accumulation, the gradients summed so far; the port
+reads it first, so its own runs resume exactly. ``optimizer_0.npz`` is
+eve_tpu's: the '/'-flattened optax state that eve_tpu's ``build_optimizer
+(...).init`` would hold after the same updates (``optax_state_flat``), so
+eve_tpu resumes a run of the port with its Adam state. The tree follows the
+config's chain layout (``optim.optax_layout``): the flat chain,
+``multi_transform`` with a frozen EyeNet or per-submodule LR multipliers
+(a subtree another label owns is an empty ``__empty__`` node),
+``MultiSteps`` (its running mean of the accumulated gradients is the
+port's sum over the micro-steps taken). Every ``count`` and
+``gradient_step`` is the number of updates taken.
+
+eve_tpu skips ``optimizer_*`` files when it reads parameters. A run of
+eve_tpu resumes with its optax state from ``optimizer_0.npz``, or from
+``optimizer_0.msgpack`` (older eve_tpu runs; ``utils.msgpack_tree``
+decodes it), through ``optax_optimizer_tree``: every ``scale_by_adam``
 node's ``mu``, ``nu`` and ``count`` become torch Adam's ``exp_avg``,
 ``exp_avg_sq`` and ``step``, through the transposes ``utils.convert``
-applies to the parameters, in each chain layout eve_tpu builds (the flat
-chain, ``multi_transform`` with a frozen EyeNet or per-submodule LR
-multipliers, ``MultiSteps``, whose running mean of the accumulated
-gradients becomes the port's sum). An ``optimizer_0.msgpack`` (older
-eve_tpu runs) is not read: the run resumes with a fresh optimizer, and the
-log says so.
+applies to the parameters, and ``MultiSteps``' mean of the gradients
+becomes the port's sum.
 
 Writes are atomic (a ``.tmp`` directory, then a rename), the newest
 ``keep_n`` are kept, and ``save_at_step(wait=False)`` hands the file write
@@ -47,7 +55,7 @@ import numpy as np
 import torch
 
 from eve_tpu_torch.parallel.mesh import gather_to_host
-from eve_tpu_torch.utils import convert
+from eve_tpu_torch.utils import convert, msgpack_tree
 from eve_tpu_torch.utils.checkpoint import (
     available_checkpoints, load_params, unflatten_tree)
 
@@ -56,19 +64,25 @@ logger = logging.getLogger(__name__)
 _SUFFIX = '.ckpt'
 OPTIMIZER_FILE = 'optimizer_torch.npz'
 # eve_tpu's optimizer state: the '/'-flattened optax state tree, and the
-# older msgpack form, which the port does not read.
+# older msgpack form.
 OPTAX_OPTIMIZER_FILE = 'optimizer_0.npz'
 OPTAX_MSGPACK_FILE = 'optimizer_0.msgpack'
 _EMPTY = '__empty__'  # eve_tpu's marker of an empty optax node
 
 
 def flatten_tree(tree, prefix=()):
-    """Nested dicts of arrays -> ``{'a/b/c': array}``."""
+    """Nested dicts of arrays -> ``{'a/b/c': array}``; an empty dict below
+    the root becomes ``path/__empty__`` (eve_tpu's ``flatten_tree``).
+    Torch tensors stay tensors."""
     out = {}
     for key, value in tree.items():
         path = prefix + (str(key),)
-        if isinstance(value, dict):
+        if isinstance(value, dict) and not value:
+            out['/'.join(path + (_EMPTY,))] = np.zeros(0, np.uint8)
+        elif isinstance(value, dict):
             out.update(flatten_tree(value, path))
+        elif isinstance(value, torch.Tensor):
+            out['/'.join(path)] = value
         else:
             out['/'.join(path)] = np.asarray(value)
     return out
@@ -142,12 +156,15 @@ class CheckpointManager:
         params, opt = snapshot(state, skip_local=not write)
         if not write:
             return None
+        plan = (None if state.optax_layout is None
+                else (state.optax_layout, state.step))
         if wait:
-            return self._write(step, params, opt)
+            return self._write(step, params, opt, plan)
         if self._writer is None:
             self._writer = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix='ckpt-writer')
-        self._pending = self._writer.submit(self._write, step, params, opt)
+        self._pending = self._writer.submit(self._write, step, params, opt,
+                                            plan)
         return self._step_dir(step)
 
     def wait_for_writes(self):
@@ -165,7 +182,10 @@ class CheckpointManager:
                 self._writer.shutdown(wait=True)
                 self._writer = None
 
-    def _write(self, step, params, opt):
+    def _write(self, step, params, opt, plan):
+        """Write the snapshot ``params, opt``; ``plan`` is ``(optax layout,
+        micro-step)`` of eve_tpu's ``optimizer_0.npz``, or None for no such
+        file (a ``TrainState`` built without a layout)."""
         final_dir = self._step_dir(step)
         tmp_dir = final_dir + '.tmp'
         if os.path.isdir(tmp_dir):
@@ -177,6 +197,9 @@ class CheckpointManager:
                      **flatten_tree(subtree))
         np.savez(os.path.join(tmp_dir, OPTIMIZER_FILE),
                  **{k: v.numpy() for k, v in opt.items()})
+        if plan is not None:
+            np.savez(os.path.join(tmp_dir, OPTAX_OPTIMIZER_FILE),
+                     **optax_flat(*plan, params, opt))
         if os.path.isdir(final_dir):
             shutil.rmtree(final_dir)
         os.rename(tmp_dir, final_dir)
@@ -205,6 +228,7 @@ class CheckpointManager:
         state.step = step
         opt_path = os.path.join(path, OPTIMIZER_FILE)
         optax_path = os.path.join(path, OPTAX_OPTIMIZER_FILE)
+        msgpack_path = os.path.join(path, OPTAX_MSGPACK_FILE)
         if load_optimizer and os.path.isfile(opt_path):
             with np.load(opt_path) as data:
                 _load_optimizer(state, unflatten_tree(
@@ -216,11 +240,12 @@ class CheckpointManager:
                     state, {k: data[k] for k in data.files}))
             logger.info('> Loaded eve_tpu optimizer state (optax) from: %s',
                         optax_path)
-        elif load_optimizer and os.path.isfile(
-                os.path.join(path, OPTAX_MSGPACK_FILE)):
-            logger.warning(
-                '> %s holds eve_tpu optimizer state as msgpack, which the '
-                'port does not read: resuming with a fresh optimizer', path)
+        elif load_optimizer and os.path.isfile(msgpack_path):
+            with open(msgpack_path, 'rb') as f:
+                flat = flatten_tree(msgpack_tree.loads(f.read()))
+            _load_optimizer(state, optax_optimizer_tree(state, flat))
+            logger.info('> Loaded eve_tpu optimizer state (optax, msgpack) '
+                        'from: %s', msgpack_path)
         return step
 
     def load_last_checkpoint(self, state, load_optimizer=True):
@@ -345,3 +370,93 @@ def optax_optimizer_tree(state, flat):
         grads = {n: (v * np.float32(mini_step)).astype(np.float32)
                  for n, v in acc.items() if n in trainable}
     return {'state': moments, 'grad': grads}
+
+
+def _eve_subtrees(arrays):
+    """``{port parameter name: array}`` -> ``{submodule: eve_tpu tree}``
+    (``utils.convert``'s transposes, one submodule at a time)."""
+    subs = {}
+    for name, v in arrays.items():
+        prefix, rest = name.split('.', 1)
+        subs.setdefault(prefix, {})[rest] = v
+    to_eve = {'eye_net': convert.eye_net_params,
+              'refine_net': convert.refine_net_params}
+    return {k: to_eve[k](sd) for k, sd in subs.items()}
+
+
+def optax_flat(layout, step, params, opt):
+    """The '/'-flattened optax state of eve_tpu's chain ``layout``
+    (``optim.OptaxLayout``) at micro-step ``step``, from a ``snapshot``'s
+    ``params, opt``: the tree eve_tpu's ``flatten_tree(build_optimizer(
+    ...).init(params))`` has, holding this state's values.
+
+    The branches are ``build_optimizer``'s. Each top-level subtree has a
+    label (``'frozen'`` for a frozen EyeNet, its own name under an LR
+    multiplier other than 1, else ``'train'``); each Adam chain holds the
+    moments of its label's subtrees and an empty node for the others.
+    """
+    updates = step // layout.accumulation
+    count = np.asarray(updates, np.int32)
+    keys = sorted({n.split('.', 1)[0] for n in params})
+    custom = any(m != 1.0 for m in layout.multipliers.values())
+    labels = {k: ('frozen' if layout.frozen and k == 'eye_net' else
+                  k if custom and layout.multipliers.get(k, 1.0) != 1.0
+                  else 'train') for k in keys}
+    moments = {}
+    for which in ('exp_avg', 'exp_avg_sq'):
+        arrays = {}
+        for name, p in params.items():
+            if labels[name.split('.', 1)[0]] == 'frozen':
+                continue
+            v = opt.get('state/%s/%s' % (name, which))
+            arrays[name] = (np.zeros(p.shape, np.float32) if v is None
+                            else v.numpy())
+        moments[which] = _eve_subtrees(arrays)
+
+    def masked(tree, label):
+        return {k: tree[k] if labels[k] == label else {} for k in keys}
+
+    def inner(label):  # weight decay -> Adam -> LR
+        return [{}] * layout.weight_decay + [
+            {'count': count, 'mu': masked(moments['exp_avg'], label),
+             'nu': masked(moments['exp_avg_sq'], label)},
+            {'count': count}]
+
+    def chain(parts):
+        return {str(i): part for i, part in enumerate(parts)}
+
+    clip = [{}] * layout.clip
+    if not custom:
+        tree = chain(clip + inner('train'))
+        if layout.frozen:
+            tree = {'inner_states': {'train': {'inner_state': tree},
+                                     'frozen': {'inner_state': {}}}}
+    else:
+        transforms = {'train': chain(inner('train')), 'frozen': {}}
+        for k, m in layout.multipliers.items():
+            if m != 1.0:
+                transforms[k] = chain(inner(k))
+        if clip and layout.frozen:  # the clip masked off the EyeNet
+            clip = [{'inner_state': {}}]
+        tree = chain(clip + [{'inner_states': {
+            label: {'inner_state': s} for label, s in transforms.items()}}])
+    if layout.accumulation > 1:
+        mini_step = step % layout.accumulation
+        acc = {}
+        for name, p in params.items():
+            g = opt.get('grad/' + name)
+            acc[name] = (g.numpy() / np.float32(mini_step)
+                         if mini_step and g is not None
+                         else np.zeros(p.shape, np.float32))
+        tree = {'mini_step': np.asarray(mini_step, np.int32),
+                'gradient_step': count, 'inner_opt_state': tree,
+                'acc_grads': _eve_subtrees(acc), 'skip_state': {}}
+    return flatten_tree(tree)
+
+
+def optax_state_flat(state):
+    """eve_tpu's flattened optax state of ``state`` (``optax_flat``), the
+    inverse of ``optax_optimizer_tree``. Under the model axis a
+    collective, as ``snapshot`` is."""
+    params, opt = snapshot(state)
+    return optax_flat(state.optax_layout, state.step, params, opt)

@@ -17,13 +17,16 @@ global clip; here:
   clip_grad_norm_`` divides by ``norm + 1e-6`` instead, so it is not used;
 - ``make_schedule``: eve_tpu's warmup and decay (``none``, ``exponential``,
   ``cyclic``) as a host function of the number of optimizer updates taken,
-  with the ``reference_compat_lr_schedule`` quirk.
+  with the ``reference_compat_lr_schedule`` quirk;
+- ``optax_layout``: which of eve_tpu's optax chains a config builds, so
+  the checkpoint writer can lay the Adam state out as eve_tpu's tree.
 
 Under the model axis (``step.shard_model``) the optimizer holds this
 rank's slices of the sharded leaves; ``clip_gradients`` is applied before
 that, to the full gradients, so it sees eve_tpu's global norm.
 """
 
+import collections
 import math
 
 import torch
@@ -103,6 +106,27 @@ def build_optimizer(config, model):
                            'lr_multiplier': float(getattr(config, key))})
     return torch.optim.Adam(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=config.weight_decay)
+
+
+# The branches of eve_tpu's ``build_optimizer``: a clip transform at the
+# head, coupled weight decay before Adam, the EyeNet frozen, each
+# submodule's LR multiplier, and the accumulation steps (``MultiSteps``
+# when more than 1).
+OptaxLayout = collections.namedtuple(
+    'OptaxLayout', 'clip weight_decay frozen multipliers accumulation')
+
+
+def optax_layout(config):
+    """The ``OptaxLayout`` of eve_tpu's optax chain for ``config``, read
+    off the config as eve_tpu's ``build_optimizer`` reads it."""
+    return OptaxLayout(
+        clip=bool(config.do_gradient_clipping) and
+        config.gradient_clip_by in ('norm', 'value'),
+        weight_decay=bool(config.weight_decay),
+        frozen=bool(config.eye_net_frozen),
+        multipliers={name: float(getattr(config, key))
+                     for name, key in SUBMODULES},
+        accumulation=max(int(config.gradient_accumulation_steps), 1))
 
 
 def set_learning_rate(optimizer, lr):

@@ -71,6 +71,7 @@ class TrainState:
     data_parallel: bool = False  # average over the process group's ranks
     grid: object = None          # the rank grid (parallel.mesh.RankGrid)
     shards: object = None        # the model axis (parallel.mesh.ModelShards)
+    optax_layout: object = None  # eve_tpu's chain (optim.OptaxLayout)
 
     @property
     def updates(self):
@@ -111,7 +112,8 @@ def create_train_state(config, model, updates_per_epoch):
                  else ''),
         clip_amount=config.gradient_clip_amount,
         accumulation_steps=max(int(config.gradient_accumulation_steps), 1),
-        data_parallel=mesh_lib.in_process_group(), grid=mesh_lib.grid())
+        data_parallel=mesh_lib.in_process_group(), grid=mesh_lib.grid(),
+        optax_layout=optim_lib.optax_layout(config))
 
 
 def shard_model(state, min_size=4096):

@@ -3,7 +3,8 @@
 A subprocess imports every module of ``eve_tpu_torch`` and then checks
 ``sys.modules``; an AST walk checks that no file of the package, and not
 ``chip_smoke.py``, names ``jax``, ``flax``, ``optax`` or ``eve_tpu`` in an
-import. The same subprocess checks that importing the package pulls in
+import, nor ``msgpack``, which the card's machine does not have (the
+port's own decoder, ``utils/msgpack_tree.py``, reads flax's msgpack). The same subprocess checks that importing the package pulls in
 neither ``h5py``, ``cv2`` nor ``gspread``, which the card's machine does
 not have: the dataset reader, the overlay and the Google Sheets logger
 import them where they read, draw or log.
@@ -18,7 +19,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, 'eve_tpu_torch')
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'eve_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'eve_tpu', 'msgpack')
 # Host libraries of the reader, the overlay and the Google Sheets logger,
 # imported on first use.
 LAZY = ('h5py', 'cv2', 'gspread', 'oauth2client')
@@ -48,6 +49,7 @@ def test_importing_every_module_pulls_in_no_jax():
             'eve_tpu_torch.models.refine_net_tpu', 'eve_tpu_torch.export',
             'eve_tpu_torch.cli.export_model',
             'eve_tpu_torch.utils.tensors',
+            'eve_tpu_torch.utils.msgpack_tree',
             'eve_tpu_torch.parallel', 'eve_tpu_torch.parallel.mesh',
             'eve_tpu_torch.parallel.temporal'} <= set(
                 modules)

@@ -19,10 +19,16 @@ describes; parameters within ``assert_updates_agree``).
 - The grid's checkpoint (every rank joins the gather of the moments, rank
   0 writes) has one process's layout: eve_tpu's ``CheckpointManager``
   reads its parameters, which agree with the one process's checkpoint, as
-  do the moments (within ``test_torch_train_step``'s gradient tolerance);
+  do the moments (within ``test_torch_train_step``'s gradient tolerance),
+  in the port's ``optimizer_torch.npz`` and in eve_tpu's
+  ``optimizer_0.npz`` alike (the same keys, dtypes, shapes and counts);
   it resumes on another grid (model 2 on two ranks) as one process
   resumes it (the next update's loss within rtol 1e-5, its parameters
-  within the Adam-update rule).
+  within the Adam-update rule), and that grid's ``optimizer_0.npz``
+  agrees with the one process's.
+- An ``optimizer_0.npz`` that eve_tpu wrote (after one eve_tpu update)
+  resumes on model 2 of two ranks as it resumes in one process (each
+  rank slices the moments it owns).
 - ``cli.train.run`` on four torchrun-style ranks with
   ``--tpu-model-parallelism 2 --tpu-sequence-shards 2`` trains as one
   process does: each step's ``full_loss`` within rtol 1e-5, the final
@@ -212,9 +218,30 @@ def test_model2_seq2_step_matches_eve_tpu(grid_run):
         assert ranks[0]['params'][name].shape == r['before'][name].shape
 
 
-def _optimizer_file(path):
-    with np.load(os.path.join(path, tckpt.OPTIMIZER_FILE)) as data:
+def _optimizer_file(path, name=tckpt.OPTIMIZER_FILE):
+    with np.load(os.path.join(path, name)) as data:
         return {k: data[k] for k in data.files}
+
+
+def _assert_optimizer_files_agree(ours_path, theirs_path, name):
+    """Two checkpoints' optimizer files ``name``: the same keys, dtypes and
+    shapes, equal integer leaves (counts), and the moments within the
+    train-step tests' gradient tolerance (elements within 0.1 of a
+    tensor's largest, L2 within 3e-2)."""
+    theirs = _optimizer_file(theirs_path, name)
+    ours = _optimizer_file(ours_path, name)
+    assert sorted(ours) == sorted(theirs)
+    elem, l2, _ = ts.TOLERANCES['refine_net']
+    for k, v in theirs.items():
+        assert (ours[k].dtype, ours[k].shape) == (v.dtype, v.shape), k
+        if k.endswith('/step') or v.dtype.kind in 'iu':
+            np.testing.assert_array_equal(ours[k], v, err_msg=k)
+            continue
+        top = np.abs(v).max(initial=0)
+        np.testing.assert_allclose(ours[k], v, rtol=0,
+                                   atol=elem * top + 1e-12, err_msg=k)
+        assert np.linalg.norm(ours[k] - v) <= l2 * np.linalg.norm(v) + \
+            1e-12, k
 
 
 def test_model_sharded_checkpoint_is_one_process_layout(grid_run):
@@ -242,21 +269,9 @@ def test_model_sharded_checkpoint_is_one_process_layout(grid_run):
         {k: (want[k] - r['before'][k]).numpy() for k in want},
         r['schedule'](0), ts.TOLERANCES['refine_net'][2], 'checkpoint')
     # The gathered moments: one process's keys and shapes, values within
-    # the train-step tests' gradient tolerance (elements within 0.1 of a
-    # tensor's largest, L2 within 3e-2).
-    theirs, ours = _optimizer_file(one_path), _optimizer_file(grid_path)
-    assert sorted(ours) == sorted(theirs)
-    elem, l2, _ = ts.TOLERANCES['refine_net']
-    for k, v in theirs.items():
-        assert ours[k].shape == v.shape, k
-        if k.endswith('/step'):
-            assert ours[k] == v, k
-            continue
-        top = np.abs(v).max()
-        np.testing.assert_allclose(ours[k], v, rtol=0,
-                                   atol=elem * top + 1e-12, err_msg=k)
-        assert np.linalg.norm(ours[k] - v) <= l2 * np.linalg.norm(v) + \
-            1e-12, k
+    # the train-step tests' gradient tolerance, in both optimizer files.
+    for name in (tckpt.OPTIMIZER_FILE, tckpt.OPTAX_OPTIMIZER_FILE):
+        _assert_optimizer_files_agree(grid_path, one_path, name)
 
 
 def test_model_sharded_checkpoint_resumes_on_another_grid(grid_run, tmp_path):
@@ -274,6 +289,8 @@ def test_model_sharded_checkpoint_resumes_on_another_grid(grid_run, tmp_path):
             .load_last_checkpoint(one)
         metrics = tstep.train_step(one, teve.batch_to_tensors(
             r['inputs']['batch2'], 'cpu'))
+        tckpt.CheckpointManager(str(tmp_path / 'ckpt_one')).save_at_step(
+            2, one)
     finally:
         ranks = tps.wait_grid(tmp_path, procs)
     want = {k: v.numpy() for k, v in one.model.state_dict().items()}
@@ -286,6 +303,55 @@ def test_model_sharded_checkpoint_resumes_on_another_grid(grid_run, tmp_path):
     moments = _optimizer_file(path)
     assert all(float(v) == 2 for k, v in moments.items()
                if k.endswith('/step'))
+    (one_path,) = available_checkpoints(str(tmp_path / 'ckpt_one'))
+    _assert_optimizer_files_agree(path, one_path[1],
+                                  tckpt.OPTAX_OPTIMIZER_FILE)
+
+
+def test_model_axis_resumes_an_eve_tpu_optimizer_file(grid_run, tmp_path):
+    """eve_tpu's checkpoint after one update of its own (an
+    ``optimizer_0.npz`` and no port file) resumed on model 2 of two ranks:
+    the next update is the one process's from the same checkpoint, and
+    the Adam state went on from eve_tpu's (its counts are 2)."""
+    r = grid_run
+    json_name, overrides, jspec, tx, schedule = tps.case(r['name'])
+    params = ts.initial_params(jspec)
+    rs = np.random.RandomState(11)
+    grads = jax.tree_util.tree_map(
+        lambda v: (1e-3 * rs.normal(size=np.shape(v))).astype(np.float32),
+        params)
+    updates, opt_state = jax.jit(tx.update)(grads, tx.init(params), params)
+    params = jax.tree_util.tree_map(lambda p, u: np.asarray(p + u), params,
+                                    updates)
+    jckpt.CheckpointManager(str(tmp_path / 'ckpt_eve_tpu')).save_at_step(
+        1, jstep.TrainState(step=np.int32(1), params=params,
+                            opt_state=opt_state))
+    resumed = convert.eve_state_dict(params)
+    procs = tps.spawn_grid(tmp_path, {'data': 1, 'model': 2}, r['inputs'], {
+        'resume': str(tmp_path / 'ckpt_eve_tpu'), 'batch': 'batch2',
+        'save': str(tmp_path / 'ckpt')}, name='resume')
+    try:
+        one = _port_state(json_name, overrides, r['before'])
+        tckpt.CheckpointManager(str(tmp_path / 'ckpt_eve_tpu')) \
+            .load_last_checkpoint(one)
+        metrics = tstep.train_step(one, teve.batch_to_tensors(
+            r['inputs']['batch2'], 'cpu'))
+        tckpt.CheckpointManager(str(tmp_path / 'ckpt_one')).save_at_step(
+            2, one)
+    finally:
+        ranks = tps.wait_grid(tmp_path, procs)
+    want = {k: v.numpy() for k, v in one.model.state_dict().items()}
+    tps.assert_step_like(ranks, float(metrics['full_loss']), want, resumed,
+                         schedule(1), r['name'], 'eve_tpu resumed',
+                         rtol=1e-5)
+    assert ranks[0]['slices'] and one.step == 2
+    (path,) = [p for s, p in available_checkpoints(str(tmp_path / 'ckpt'))
+               if s == 2]
+    (one_path,) = [p for _, p in available_checkpoints(
+        str(tmp_path / 'ckpt_one'))]
+    optax = _optimizer_file(path, tckpt.OPTAX_OPTIMIZER_FILE)
+    assert {int(v) for k, v in optax.items() if k.endswith('count')} == {2}
+    _assert_optimizer_files_agree(path, one_path, tckpt.OPTAX_OPTIMIZER_FILE)
 
 
 # ----------------------------------------------------------------------

@@ -3,11 +3,15 @@
 Parameters cross in both directions bitwise: the port writes and eve_tpu's
 ``CheckpointManager.load`` reads, and the reverse (both store eve_tpu's
 flattened float32 tree; the layout conversion only transposes). The port's
-own optimizer state resumes exactly; an eve_tpu run resumes with its optax
-state from ``optimizer_0.npz`` (``tests/test_torch_train_moments.py``
-holds the continuation against eve_tpu's in every chain layout), and from
-the older ``optimizer_0.msgpack`` with a fresh optimizer and a log line. Pruning keeps the newest ``keep_n``, and an
-interrupted write (a left-over ``.tmp`` directory) is never read.
+own optimizer state resumes exactly, and every checkpoint also holds
+eve_tpu's ``optimizer_0.npz`` (``tests/test_torch_optax_export.py``); an
+eve_tpu run resumes with its optax state from ``optimizer_0.npz``
+(``tests/test_torch_train_moments.py`` holds the continuation against
+eve_tpu's in every chain layout), and from the older
+``optimizer_0.msgpack`` to the same state, bitwise
+(``tests/test_torch_optax_msgpack.py`` holds the decoder). Pruning keeps
+the newest ``keep_n``, and an interrupted write (a left-over ``.tmp``
+directory) is never read.
 """
 
 import functools
@@ -82,7 +86,8 @@ def _jax_template(jspec):
 def test_port_checkpoint_loads_in_eve_tpu_bitwise(tmp_path, tconf, jspec):
     state = _state(tconf)
     path = tckpt.CheckpointManager(str(tmp_path)).save_at_step(3, state)
-    assert sorted(os.listdir(path)) == ['eye_net.npz', 'optimizer_torch.npz',
+    assert sorted(os.listdir(path)) == ['eye_net.npz', 'optimizer_0.npz',
+                                        'optimizer_torch.npz',
                                         'refine_net.npz']
     loaded, step = jckpt.CheckpointManager(str(tmp_path)).load(
         path, _jax_template(jspec))
@@ -141,18 +146,32 @@ def test_eve_tpu_checkpoint_loads_in_port_bitwise(tmp_path, tconf, jspec,
         assert float(state.optimizer.state[p]['step']) == 0.0
         assert torch.equal(p.grad, want_grads[n]), n
 
-    # The older msgpack form is not read: a fresh optimizer, and a log line.
-    old = os.path.join(str(tmp_path), 'checkpoints', '0000006.ckpt')
+    # The older msgpack form resumes to the same state, bitwise (at step
+    # 7, also one micro-step into an update).
+    import flax.serialization
+    old = os.path.join(str(tmp_path), 'checkpoints', '0000007.ckpt')
     os.rename(os.path.join(str(tmp_path), 'checkpoints', '0000005.ckpt'), old)
-    os.rename(os.path.join(old, 'optimizer_0.npz'),
-              os.path.join(old, 'optimizer_0.msgpack'))
+    os.remove(os.path.join(old, 'optimizer_0.npz'))
+    with open(os.path.join(old, 'optimizer_0.msgpack'), 'wb') as f:
+        f.write(flax.serialization.to_bytes(opt_state))
+    from_npz = state
     state = _state(tconf)
     caplog.clear()
-    with caplog.at_level(logging.WARNING):
+    with caplog.at_level(logging.INFO):
         assert tckpt.CheckpointManager(str(tmp_path)).load_last_checkpoint(
-            state) == 6
-    assert 'fresh optimizer' in caplog.text
-    assert not state.optimizer.state
+            state) == 7
+    assert 'optimizer_0.msgpack' in caplog.text
+    assert 'fresh optimizer' not in caplog.text
+    a = from_npz.optimizer.state_dict()['state']
+    b = state.optimizer.state_dict()['state']
+    assert a.keys() == b.keys() and len(a) == len(trained)
+    for i in a:
+        for k in a[i]:
+            assert torch.equal(a[i][k], b[i][k]), (i, k)
+    for (n, p), (_, q) in zip(from_npz.model.named_parameters(),
+                              state.model.named_parameters()):
+        assert (p.grad is None) == (q.grad is None), n
+        assert p.grad is None or torch.equal(p.grad, q.grad), n
 
 
 def _batch(seed):
