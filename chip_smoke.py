@@ -7,7 +7,7 @@
    versions); exits non-zero without a card.
 2. Builds the CUDA kernels from ``eve_tpu_torch/csrc`` with nvcc.
 3. Kernel phase: holds each kernel against its plain PyTorch version on the
-   card at N=0, 1, 17, 30, 80, 120, 240, 3840 (render for sigma 10, 3, 5
+   card at N=0, 1, 17, 30, 80, 120, 240, 480, 3840 (render for sigma 10, 3, 5
    one at a time, sigmas 10 and 3 in one launch as ``create_images`` draws
    them, and all three with a validity mask in one launch; soft-argmax of
    72x128 maps in float32 and bfloat16, and of 144x256 maps at N=1, 17, 80;
@@ -190,7 +190,19 @@
    launch of each kernel a dispatch. ``write_synthetic_dataset`` and
    ``AsyncVideoReader`` need ``h5py``, ``cv2`` or ``ffmpeg``, which the
    card's machine lacks: the CPU tests hold them.
-15. Prints the kernel table as one JSON line, the card, and last
+15. Bench phase (``bench_phase``, last): the measuring tools of
+   ``eve_tpu_torch.bench`` called in this process at eve_tpu's headline
+   shape (B = 16, T = 30, bf16, uint8 frames on the card) with fewer
+   iterations than their defaults: ``inference`` (8 timed forwards; bf16
+   and float32, each with both topologies), the train step's ms (B = 8,
+   one run of 3 steps), ``chain`` (k2 6; B = 1 with k2 16), ``serve``
+   sustained and ``--loopback`` (2 chunks a session), ``checkpoint`` (1
+   rep), ``phases`` train (with the remat sweep) and infer; each tool's
+   JSON line logged, the launches of the inference, train-step and
+   sustained-serving runs counted (each kernel at least once); the bench's
+   float32 forward at B = 2, T = 30 on the card against the CPU within
+   ``CPU_PX_ATOL``; and both kernels timed at the headline's N = 480.
+16. Prints the kernel table as one JSON line, the card, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the run exits non-zero without the last line.
@@ -239,10 +251,15 @@ CPU_PX_ATOL = 5e-2
 OTHER_ATOL = 1e-3
 
 SESSIONS, CHUNKS, T, MAX_BATCH = 8, 3, 10, 8
+# The bench phase: eve_tpu's headline shape (bench.py), the timed forwards
+# of its inference tool (its default 20), and the card-vs-CPU clips.
+BENCH_B, BENCH_T, BENCH_ITERS, BENCH_CMP_B = 16, 30, 8, 2
+BENCH_N = BENCH_B * BENCH_T   # the maps a headline forward renders
 # Map counts the kernel phase holds the kernels at (30 = a streamed chunk,
 # 80 = the serving shape, 120 = a seq = 2 rank's frames of a training
-# step (GRID_RANK_N), 240 = the training shape, 3840 = a Codalab batch).
-KERNEL_NS = (0, 1, 17, 30, 80, 120, 240, 3840)
+# step (GRID_RANK_N), 240 = the training shape, 480 = the headline
+# (BENCH_N), 3840 = a Codalab batch).
+KERNEL_NS = (0, 1, 17, 30, 80, 120, 240, BENCH_N, 3840)
 
 # Training phase: configs/refine_net.json's batch and clip length, 8
 # optimizer steps (one epoch of TRAIN_STEPS batches), a checkpoint and a
@@ -4162,6 +4179,100 @@ def slice_k_phase(hk, card, train, eye_state):
             'cost': cost}
 
 
+def bench_tool(hk, name, main, argv):
+    """``main(argv)`` of a measuring tool in this process, its JSON line
+    logged on a line of its own (prefixed, so it is no bare JSON line);
+    ``(line, launches)``."""
+    import contextlib
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, launches = counted(hk, lambda: main(argv))
+    if rc != 0:
+        raise AssertionError('bench %s %s: exit %d' % (name, argv, rc))
+    (text,) = out.getvalue().splitlines()
+    log('bench %s: %s' % (name, text))
+    return json.loads(text), launches
+
+
+def bench_card_vs_cpu():
+    """The bench's float32 forward (``common.infer``) of B = BENCH_CMP_B
+    clips of T = BENCH_T on the card against the same forward on the CPU,
+    on seeded weights with no zero head (``random_state_dict``)."""
+    from eve_tpu_torch.bench import common
+    from eve_tpu_torch.models import eve as eve_lib
+
+    spec = common.flagship_spec('float32')
+    card = common.init_flagship(spec, common.resolve_device('cuda'))
+    state_dict = random_state_dict(card, seed=13)
+    # A pupil head that passes its ReLU, so the pupils are compared too.
+    state_dict['eye_net.fc_to_pupil.2.bias'] += 1.0
+    card.load_state_dict(state_dict)
+    cpu = eve_lib.build_model(spec, state_dict, 'cpu')
+    (batch,) = common.make_batches(BENCH_CMP_B, BENCH_T,
+                                   torch.device('cpu'), n=1)
+    with torch.inference_mode():
+        want = common.infer(cpu, batch)
+        got = common.infer(card.eval(), eve_lib.batch_to_tensors(
+            batch, 'cuda'))
+    errs = {}
+    for key, a, b in zip(common.INFER_OUTPUTS, got, want):
+        a = a.cpu()
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError('bench card vs CPU: %s shape %s, finite %s'
+                                 % (key, tuple(a.shape),
+                                    bool(torch.isfinite(a).all())))
+        assert_close(a, b, 'bench card vs CPU %s' % key, rtol=1e-4,
+                     atol=CPU_PX_ATOL if 'PoG_px' in key else OTHER_ATOL)
+        errs[key] = max_err(a, b)
+    if float(want[1].max() - want[1].min()) < 1.0 or not bool(
+            (want[2] > 0).all()):
+        raise AssertionError('bench card vs CPU: the refined PoG is flat '
+                             'or a pupil is 0')
+    log('bench: float32 forward B=%d T=%d, card vs CPU max abs err %s'
+        % (BENCH_CMP_B, BENCH_T, json.dumps(errs)))
+    return errs
+
+
+def bench_phase(hk):
+    """The measuring tools (``eve_tpu_torch.bench``) in this process at
+    eve_tpu's headline shape (B = 16, T = 30; the train step's B = 8), with
+    fewer iterations than their defaults: inference frames/s at bf16 and
+    float32 (both topologies each), the train step's ms, the chain's
+    device and wall ms, sustained and loopback serving, the checkpoint's
+    blocked seconds, and the phases of the train step (with the remat
+    sweep) and of the forward; then the bench forward card vs CPU. Each
+    tool's JSON line is logged; returns the launches of the inference,
+    train-step and sustained-serving runs."""
+    from eve_tpu_torch.bench import (
+        chain, checkpoint, inference, phases, serve)
+
+    launches = {}
+    _, launches['inference'] = bench_tool(
+        hk, 'inference', inference.main, ['--iters', str(BENCH_ITERS)])
+    bench_tool(hk, 'inference float32', inference.main,
+               ['--iters', str(BENCH_ITERS), '--dtype', 'float32'])
+    ms, launches['train'] = counted(
+        hk, lambda: inference.measure_train_step_ms(iters=3, repeats=1))
+    log('bench train_step_ms: %.2f ms (B=8, T=30, bf16, median of 1 x 3 '
+        'steps after 2 warm-up steps) %s' % (ms, card_line()))
+    bench_tool(hk, 'chain', chain.main, ['--k2', '6', '--b1-k2', '16'])
+    serve_argv = ['--chunks', '2']
+    _, launches['serve'] = bench_tool(hk, 'serve', serve.main, serve_argv)
+    bench_tool(hk, 'serve loopback', serve.main, serve_argv + ['--loopback'])
+    bench_tool(hk, 'checkpoint', checkpoint.main, ['--reps', '1'])
+    bench_tool(hk, 'phases train', phases.main,
+               ['--mode', 'train', '--iters', '2', '--remat-sweep'])
+    bench_tool(hk, 'phases infer', phases.main,
+               ['--mode', 'infer', '--iters', '2'])
+    for path, counts in launches.items():
+        if not all(counts.values()):
+            raise AssertionError('bench %s: a kernel was not launched: %s'
+                                 % (path, counts))
+    log('bench launches: %s' % json.dumps(launches))
+    errs = bench_card_vs_cpu()
+    return {'launches': launches, 'card_vs_cpu': errs}
+
+
 def harness_config(config, batch):
     """The port config of a grid or data-parallel child run."""
     from eve_tpu_torch.cli import common
@@ -4233,6 +4344,10 @@ def main():
     timings_rank = kernel_timings(hk, GRID_RANK_N)
     log('kernel times at N=%d, the frames of a seq = 2 rank: %s'
         % (GRID_RANK_N, card_line()))
+    bench = timed('bench', bench_phase, hk)
+    timings_bench = kernel_timings(hk, BENCH_N)
+    log('kernel times at N=%d, the headline (B = %d, T = %d): %s'
+        % (BENCH_N, BENCH_B, BENCH_T, card_line()))
     # Launch counts of the slice F and G paths, by JSON key.
     new_paths = {}
     for dtype, prefix in (('float32', ''), ('bfloat16', 'bf16_')):
@@ -4279,6 +4394,11 @@ def main():
     # soft-argmax 1 a step) and the adversarial dispatch (1 and 1).
     new_paths['optax_resume_train_launches'] = slice_k['launches']
     new_paths['adversarial_serve_launches'] = slice_k['serve_launches']
+    # The bench phase's tools: the inference tool's 24 forwards (4 warm-up
+    # and 8 timed, each topology), the train-step tool's 5 steps and the
+    # sustained-serving tool's dispatches.
+    for path, counts in bench['launches'].items():
+        new_paths['bench_%s_launches' % path] = counts
 
     source = 'eve_tpu_torch/csrc/heatmap_kernels.cu'
     replaces = {'render_heatmaps': 'eve_tpu/kernels/heatmap_kernels.py:38',
@@ -4302,7 +4422,8 @@ def main():
                      'bf16_codalab_launches': bf16['codalab'][name],
                      'max_abs_err': errs[name],
                      'n%d' % CODALAB_N: timings_eval[name],
-                     'n%d' % GRID_RANK_N: timings_rank[name]},
+                     'n%d' % GRID_RANK_N: timings_rank[name],
+                     'n%d' % BENCH_N: timings_bench[name]},
                     **{k: v[name] for k, v in new_paths.items()},
                     **timings[name])
                for name in ('render_heatmaps', 'soft_argmax')]
@@ -4314,6 +4435,7 @@ def main():
     kernels[0]['s3'] = timings['render_heatmaps_s3']
     kernels[0]['n%d_s3' % CODALAB_N] = timings_eval['render_heatmaps_s3']
     kernels[0]['n%d_s3' % GRID_RANK_N] = timings_rank['render_heatmaps_s3']
+    kernels[0]['n%d_s3' % BENCH_N] = timings_bench['render_heatmaps_s3']
     log(json.dumps({'kernels': kernels}))
     log('card:', card_line())
     log(json.dumps({'ok': True, 'device': {

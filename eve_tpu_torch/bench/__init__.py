@@ -1,0 +1,24 @@
+"""Measuring tools: the counterparts of eve_tpu's ``bench*.py`` scripts.
+
+Each tool is a module with plain functions and a ``main``, run as
+``python -m eve_tpu_torch.bench.<tool>``, and prints exactly one JSON line
+on stdout with eve_tpu's metric name and keys, plus ``card`` (the card's
+name and power limit from ``nvidia-smi``, or ``"cpu"``):
+
+- ``inference`` (eve_tpu's ``bench.py``): inference frames/s of the
+  flagship model at B = 16, T = 30, bf16, uint8 inputs on the device; the
+  fused train step's ms (``measure_train_step_ms``).
+- ``chain`` (``bench_chain.py``): device ms a batch, beside eve_tpu's
+  chained wall formula, at B = 16 and at B = 1.
+- ``serve`` (``bench_serve.py``): sustained closed-loop serving through
+  ``ServingEngine``; ``--loopback`` adds the raw-step floors and the
+  batcher's own cost.
+- ``checkpoint`` (``bench_checkpoint.py``): how long a save blocks the
+  training thread.
+- ``phases`` (``bench_train.py`` and ``bench_infer_phases.py``): ms, GFLOP
+  and operand bytes of each phase of the train step or of the forward.
+
+Every tool takes ``--device`` (``cuda`` by default) and raises when it
+names a card that is not there; nothing falls back to the CPU. TF32 is
+off, as in every entry point of the port.
+"""

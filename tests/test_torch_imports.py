@@ -3,11 +3,14 @@
 A subprocess imports every module of ``eve_tpu_torch`` and then checks
 ``sys.modules``; an AST walk checks that no file of the package, and not
 ``chip_smoke.py``, names ``jax``, ``flax``, ``optax`` or ``eve_tpu`` in an
-import, nor ``msgpack``, which the card's machine does not have (the
-port's own decoder, ``utils/msgpack_tree.py``, reads flax's msgpack). The same subprocess checks that importing the package pulls in
-neither ``h5py``, ``cv2`` nor ``gspread``, which the card's machine does
-not have: the dataset reader, the overlay and the Google Sheets logger
-import them where they read, draw or log.
+import, nor one of eve_tpu's root ``bench*.py`` tools (the port's
+measuring tools, ``eve_tpu_torch.bench``, keep their own copies), nor
+``msgpack``, which the card's machine does not have (the port's own
+decoder, ``utils/msgpack_tree.py``, reads flax's msgpack). The same
+subprocess checks that importing the package pulls in neither ``h5py``,
+``cv2`` nor ``gspread``, which the card's machine does not have: the
+dataset reader, the overlay and the Google Sheets logger import them where
+they read, draw or log.
 """
 
 import ast
@@ -19,7 +22,9 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, 'eve_tpu_torch')
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'eve_tpu', 'msgpack')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'eve_tpu', 'msgpack') + tuple(
+    sorted(name[:-len('.py')] for name in os.listdir(ROOT)
+           if name.startswith('bench') and name.endswith('.py')))
 # Host libraries of the reader, the overlay and the Google Sheets logger,
 # imported on first use.
 LAZY = ('h5py', 'cv2', 'gspread', 'oauth2client')
@@ -51,7 +56,11 @@ def test_importing_every_module_pulls_in_no_jax():
             'eve_tpu_torch.utils.tensors',
             'eve_tpu_torch.utils.msgpack_tree',
             'eve_tpu_torch.parallel', 'eve_tpu_torch.parallel.mesh',
-            'eve_tpu_torch.parallel.temporal'} <= set(
+            'eve_tpu_torch.parallel.temporal',
+            'eve_tpu_torch.bench', 'eve_tpu_torch.bench.common',
+            'eve_tpu_torch.bench.inference', 'eve_tpu_torch.bench.chain',
+            'eve_tpu_torch.bench.serve', 'eve_tpu_torch.bench.checkpoint',
+            'eve_tpu_torch.bench.phases'} <= set(
                 modules)
     code = (
         'import importlib, json, sys\n'
