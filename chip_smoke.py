@@ -192,17 +192,26 @@
    card's machine lacks: the CPU tests hold them.
 15. Bench phase (``bench_phase``, last): the measuring tools of
    ``eve_tpu_torch.bench`` called in this process at eve_tpu's headline
-   shape (B = 16, T = 30, bf16, uint8 frames on the card) with fewer
-   iterations than their defaults: ``inference`` (8 timed forwards; bf16
-   and float32, each with both topologies), the train step's ms (B = 8,
-   one run of 3 steps), ``chain`` (k2 6; B = 1 with k2 16), ``serve``
-   sustained and ``--loopback`` (2 chunks a session), ``checkpoint`` (1
-   rep), ``phases`` train (with the remat sweep) and infer; each tool's
-   JSON line logged, the launches of the inference, train-step and
-   sustained-serving runs counted (each kernel at least once); the bench's
-   float32 forward at B = 2, T = 30 on the card against the CPU within
-   ``CPU_PX_ATOL``; and both kernels timed at the headline's N = 480.
-16. Prints the kernel table as one JSON line, the card, and last
+   shape (B = 16, T = 30, bf16, uint8 frames on the card). First the
+   regression gate at its defaults (``inference.run_check``: eve_tpu's 11
+   metrics), recorded into ``build/chip_smoke_bench/bands.json`` and then
+   checked against that record, which must pass (the card checks itself;
+   the committed bands file is never read here), each of its inference and
+   train-step measurements launching both kernels. Then, with fewer
+   iterations than their defaults: ``inference`` at float32 (4 timed
+   forwards, both topologies), ``chain`` (k2 4; B = 1 with k2 8),
+   ``serve`` sustained and ``--loopback`` (2 chunks a session),
+   ``checkpoint`` (1 rep), ``phases`` train (with the remat sweep) and
+   infer, and ``temporal`` at n = 2 and 4 (T = 64; its ranks are child
+   processes sharing the card over gloo); each tool's JSON line logged,
+   the launches of the sustained-serving run counted (each kernel at
+   least once); the bench's float32 forward at B = 2, T = 30 on the card
+   against the CPU within ``CPU_PX_ATOL``; and both kernels timed at the
+   headline's N = 480. ``bench.pipeline`` is not driven: it reads EVE
+   videos and labels, and the card's machine has no ``h5py``, ``cv2`` or
+   ``ffmpeg`` (its CPU test holds it).
+16. Prints the whole run's seconds, the kernel table as one JSON line,
+   the card, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the run exits non-zero without the last line.
@@ -252,8 +261,9 @@ OTHER_ATOL = 1e-3
 
 SESSIONS, CHUNKS, T, MAX_BATCH = 8, 3, 10, 8
 # The bench phase: eve_tpu's headline shape (bench.py), the timed forwards
-# of its inference tool (its default 20), and the card-vs-CPU clips.
-BENCH_B, BENCH_T, BENCH_ITERS, BENCH_CMP_B = 16, 30, 8, 2
+# of its float32 inference run (the tool's default 20), and the
+# card-vs-CPU clips.
+BENCH_B, BENCH_T, BENCH_ITERS, BENCH_CMP_B = 16, 30, 4, 2
 BENCH_N = BENCH_B * BENCH_T   # the maps a headline forward renders
 # Map counts the kernel phase holds the kernels at (30 = a streamed chunk,
 # 80 = the serving shape, 120 = a seq = 2 rank's frames of a training
@@ -4182,15 +4192,17 @@ def slice_k_phase(hk, card, train, eye_state):
 def bench_tool(hk, name, main, argv):
     """``main(argv)`` of a measuring tool in this process, its JSON line
     logged on a line of its own (prefixed, so it is no bare JSON line);
-    ``(line, launches)``."""
+    ``(line, launches)``; its seconds logged after it."""
     import contextlib
     out = io.StringIO()
+    t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc, launches = counted(hk, lambda: main(argv))
     if rc != 0:
         raise AssertionError('bench %s %s: exit %d' % (name, argv, rc))
     (text,) = out.getvalue().splitlines()
     log('bench %s: %s' % (name, text))
+    log('bench %s: %.1f s' % (name, time.perf_counter() - t0))
     return json.loads(text), launches
 
 
@@ -4233,29 +4245,95 @@ def bench_card_vs_cpu():
     return errs
 
 
+# The bench phase's regression gate records its bands here (git-ignored),
+# never in the committed bands file: the card of this run need not be the
+# one they were recorded on.
+BENCH_OUT = os.path.join(ROOT, 'build', 'chip_smoke_bench')
+# The gate's measurements whose launches are held: each kernel launches in
+# each of them.
+GATE_COUNTED = ('inference_frames_per_sec',
+                'inference_frames_per_sec_tpu_native', 'train_step_ms',
+                'train_step_ms_tpu_native', 'train_step_ms_patchify8')
+
+
+def gate_run(hk, record, bands_path):
+    """``run_check`` of the port's gate (``eve_tpu_torch.bench.inference``)
+    in this process on ``bands_path``, each measurement's launches counted
+    (with the counts at 0 before it); its stdout line and stderr table
+    logged. Returns ``(exit code, {metric: launches}, seconds)``."""
+    import contextlib
+    from eve_tpu_torch.bench import inference
+
+    launches, seconds = {}, {}
+
+    def counting(name, fn):
+        def run(device):
+            t0 = time.perf_counter()
+            value, launches[name] = counted(hk, lambda: fn(device))
+            seconds[name] = round(time.perf_counter() - t0, 1)
+            return value
+        return run
+
+    checks = inference.CHECKS
+    inference.CHECKS = {name: (counting(name, fn), unit, higher)
+                        for name, (fn, unit, higher) in checks.items()}
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = inference.run_check(record=record, bands_path=bands_path)
+    finally:
+        inference.CHECKS = checks
+        what = 'record' if record else 'check'
+        for line in err.getvalue().splitlines():
+            log('bench gate %s: %s' % (what, line))
+        for line in out.getvalue().splitlines():
+            log('bench gate %s: %s' % (what, line))
+        log('bench gate %s: seconds a measurement %s'
+            % (what, json.dumps(seconds)))
+    return rc, launches, time.perf_counter() - t0
+
+
 def bench_phase(hk):
     """The measuring tools (``eve_tpu_torch.bench``) in this process at
-    eve_tpu's headline shape (B = 16, T = 30; the train step's B = 8), with
-    fewer iterations than their defaults: inference frames/s at bf16 and
-    float32 (both topologies each), the train step's ms, the chain's
+    eve_tpu's headline shape (B = 16, T = 30; the train step's B = 8).
+    First the regression gate at its defaults: ``run_check(record=True)``
+    into ``BENCH_OUT``, then ``run_check`` against that record, which must
+    pass (this card checking itself); the launches of its inference and
+    train-step measurements counted. Then, with fewer iterations than their
+    defaults: inference frames/s at float32 (both topologies), the chain's
     device and wall ms, sustained and loopback serving, the checkpoint's
-    blocked seconds, and the phases of the train step (with the remat
-    sweep) and of the forward; then the bench forward card vs CPU. Each
-    tool's JSON line is logged; returns the launches of the inference,
-    train-step and sustained-serving runs."""
+    blocked seconds, the phases of the train step (with the remat sweep)
+    and of the forward, and the sharded-scan overhead tool at n = 2, 4;
+    then the bench forward card vs CPU. Each tool's JSON line is logged;
+    returns the launches of the gate's inference and train-step runs and
+    of the sustained-serving run."""
     from eve_tpu_torch.bench import (
-        chain, checkpoint, inference, phases, serve)
+        chain, checkpoint, inference, phases, serve, temporal)
 
-    launches = {}
-    _, launches['inference'] = bench_tool(
-        hk, 'inference', inference.main, ['--iters', str(BENCH_ITERS)])
+    shutil.rmtree(BENCH_OUT, ignore_errors=True)
+    os.makedirs(BENCH_OUT)
+    bands = os.path.join(BENCH_OUT, 'bands.json')
+    gate = {}
+    for record in (True, False):
+        rc, counts, seconds = gate_run(hk, record, bands)
+        what = 'record' if record else 'check'
+        log('bench gate %s: exit %d in %.1f s, launches %s'
+            % (what, rc, seconds, json.dumps(counts)))
+        if rc != 0:
+            raise AssertionError('bench gate %s against its own record: '
+                                 'exit %d' % (what, rc))
+        for name in GATE_COUNTED:
+            if not all(counts[name].values()):
+                raise AssertionError('bench gate %s %s: a kernel was not '
+                                     'launched: %s' % (what, name,
+                                                       counts[name]))
+        gate[what] = counts
+    launches = {'gate_inference': gate['record']['inference_frames_per_sec'],
+                'gate_train': gate['record']['train_step_ms']}
     bench_tool(hk, 'inference float32', inference.main,
                ['--iters', str(BENCH_ITERS), '--dtype', 'float32'])
-    ms, launches['train'] = counted(
-        hk, lambda: inference.measure_train_step_ms(iters=3, repeats=1))
-    log('bench train_step_ms: %.2f ms (B=8, T=30, bf16, median of 1 x 3 '
-        'steps after 2 warm-up steps) %s' % (ms, card_line()))
-    bench_tool(hk, 'chain', chain.main, ['--k2', '6', '--b1-k2', '16'])
+    bench_tool(hk, 'chain', chain.main, ['--k2', '4', '--b1-k2', '8'])
     serve_argv = ['--chunks', '2']
     _, launches['serve'] = bench_tool(hk, 'serve', serve.main, serve_argv)
     bench_tool(hk, 'serve loopback', serve.main, serve_argv + ['--loopback'])
@@ -4264,6 +4342,10 @@ def bench_phase(hk):
                ['--mode', 'train', '--iters', '2', '--remat-sweep'])
     bench_tool(hk, 'phases infer', phases.main,
                ['--mode', 'infer', '--iters', '2'])
+    line, _ = bench_tool(hk, 'temporal', temporal.main,
+                         ['--shards', '2', '4'])
+    if {'sharded_scan_2_ms', 'sharded_scan_4_ms'} - set(line):
+        raise AssertionError('bench temporal: no sharded time: %s' % line)
     for path, counts in launches.items():
         if not all(counts.values()):
             raise AssertionError('bench %s: a kernel was not launched: %s'
@@ -4289,6 +4371,7 @@ def timed(name, fn, *args):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         log('chip_smoke: no CUDA card visible (torch.cuda.is_available() '
             'is False)')
@@ -4394,9 +4477,9 @@ def main():
     # soft-argmax 1 a step) and the adversarial dispatch (1 and 1).
     new_paths['optax_resume_train_launches'] = slice_k['launches']
     new_paths['adversarial_serve_launches'] = slice_k['serve_launches']
-    # The bench phase's tools: the inference tool's 24 forwards (4 warm-up
-    # and 8 timed, each topology), the train-step tool's 5 steps and the
-    # sustained-serving tool's dispatches.
+    # The bench phase: the gate's record run's inference measurement (4
+    # warm-up and 20 timed forwards) and train step (2 warm-up and 3 x 10
+    # timed steps), and the sustained-serving tool's dispatches.
     for path, counts in bench['launches'].items():
         new_paths['bench_%s_launches' % path] = counts
 
@@ -4436,6 +4519,8 @@ def main():
     kernels[0]['n%d_s3' % CODALAB_N] = timings_eval['render_heatmaps_s3']
     kernels[0]['n%d_s3' % GRID_RANK_N] = timings_rank['render_heatmaps_s3']
     kernels[0]['n%d_s3' % BENCH_N] = timings_bench['render_heatmaps_s3']
+    log('chip_smoke: every phase passed in %.1f s'
+        % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': kernels}))
     log('card:', card_line())
     log(json.dumps({'ok': True, 'device': {

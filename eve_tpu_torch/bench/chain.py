@@ -58,10 +58,13 @@ def chained_forward(model, batch):
 
 def measure_device_ms(batch_size=16, seq=30, dtype='bfloat16',
                       tpu_native=False, stem='patchify', k1=2, k2=12,
-                      device='cuda', eyes=common.EYES):
+                      device='cuda', eyes=common.EYES, wall=True):
     """``{'device_ms', 'chained_wall_ms'}`` a forward of the flagship model
     on one uint8 batch: device-busy ms over forwards k1..k2 (None off a
-    card), and ``(T[k2] - T[k1]) / (k2 - k1)`` of the chain's wall."""
+    card), and ``(T[k2] - T[k1]) / (k2 - k1)`` of the chain's wall. With
+    ``wall`` False the chains are neither warmed nor timed on the host
+    (``chained_wall_ms`` None): k1 forwards warm up, then the profiled
+    ones run as before."""
     device = common.resolve_device(device)
     spec = common.flagship_spec(dtype, tpu_native, stem)
     model = common.init_flagship(spec, device).eval()
@@ -77,13 +80,19 @@ def measure_device_ms(batch_size=16, seq=30, dtype='bfloat16',
             common.sync(device)
             return s
 
-        for k in (k1, k2):  # warm-up: cuDNN's choices, the allocator
-            chain(k, 1.0)
-        ts = {}
-        for k in (k1, k2):
-            t0 = time.perf_counter()
-            chain(k, 2.0)
-            ts[k] = time.perf_counter() - t0
+        # Warm-up: cuDNN's choices, the allocator.
+        chained_wall_ms = None
+        if wall:
+            for k in (k1, k2):
+                chain(k, 1.0)
+            ts = {}
+            for k in (k1, k2):
+                t0 = time.perf_counter()
+                chain(k, 2.0)
+                ts[k] = time.perf_counter() - t0
+            chained_wall_ms = (ts[k2] - ts[k1]) / (k2 - k1) * 1e3
+        else:
+            chain(k1, 1.0)
         device_ms = None
         if device.type == 'cuda':
             s = chain(k1, 3.0)
@@ -92,8 +101,7 @@ def measure_device_ms(batch_size=16, seq=30, dtype='bfloat16',
             def one():
                 carry[0] = step(carry[0] + 3e-20)
             device_ms = common.device_busy_ms(one, device, k2 - k1)
-    return {'device_ms': device_ms,
-            'chained_wall_ms': (ts[k2] - ts[k1]) / (k2 - k1) * 1e3}
+    return {'device_ms': device_ms, 'chained_wall_ms': chained_wall_ms}
 
 
 def main(argv=None):

@@ -60,7 +60,8 @@ def test_importing_every_module_pulls_in_no_jax():
             'eve_tpu_torch.bench', 'eve_tpu_torch.bench.common',
             'eve_tpu_torch.bench.inference', 'eve_tpu_torch.bench.chain',
             'eve_tpu_torch.bench.serve', 'eve_tpu_torch.bench.checkpoint',
-            'eve_tpu_torch.bench.phases'} <= set(
+            'eve_tpu_torch.bench.phases', 'eve_tpu_torch.bench.temporal',
+            'eve_tpu_torch.bench.pipeline'} <= set(
                 modules)
     code = (
         'import importlib, json, sys\n'
