@@ -10,6 +10,8 @@ path:
   versions and launch counts
 - ``eve_tpu_torch.serve``: the micro-batching engine and HTTP front end
 - ``eve_tpu_torch.cli.serve``: ``python -m eve_tpu_torch.cli.serve``
+- ``eve_tpu_torch.tracing``: spans at the layer boundaries, recorded
+  while a torch profiler records
 
 The port imports ``torch`` and never ``jax`` or ``eve_tpu``. Entry points
 run on the card (``device='cuda'``) unless the caller passes

@@ -18,6 +18,7 @@ import os
 
 import torch
 
+from eve_tpu_torch import tracing
 from eve_tpu_torch.cli import common
 from eve_tpu_torch.data.dataset import EVESequencesBase
 from eve_tpu_torch.data.loader import DataLoader, split_host_batch
@@ -137,6 +138,10 @@ def iterator(model, dataloader, create_images=True, streaming=False,
     outputs joined in row order (0-dim ones averaged). The loader's
     ``batch_size`` must divide by the mesh; a ragged final batch is padded
     with copies of its last clip, run, and cut. Not with ``streaming``.
+
+    While a torch profiler records, each batch's work up to its yield is
+    an ``infer.batch`` span (``eve_tpu_torch.tracing``) with ``infer.h2d``
+    (the copy in) and ``infer.d2h`` (the outputs' copy back) children.
     """
     device = next(model.parameters()).device
     mesh = mesh_lib.as_mesh(mesh, device)
@@ -158,36 +163,43 @@ def iterator(model, dataloader, create_images=True, streaming=False,
         replicas = mesh_lib.replicate(mesh, model)
     states = None
     for current_step, batch in enumerate(dataloader):
-        tensors, host_extras = split_host_batch(batch)
-        B = next(iter(tensors.values())).shape[0]
-        with torch.inference_mode():
-            if mesh is not None:
-                outputs = _mesh_forward(mesh, replicas, tensors, B, full,
-                                        create_images)
-            elif streaming:
-                if states is None:
-                    if B != 1:
-                        raise ValueError('streaming inference runs one clip '
-                                         'a batch, got %d' % B)
-                    states = eve_lib.init_stream_state(model.spec, B, device)
-                outputs = model(_to(tensors, device), output_predictions=True,
-                                create_images=create_images,
-                                initial_states=states, return_states=True)
-                states = outputs.pop('states')
-            else:
-                outputs = model(_to(tensors, device), output_predictions=True,
-                                create_images=create_images)
-            outputs_np = {k: v.cpu().numpy() for k, v in outputs.items()}
-        inputs_np = ({k: v.numpy() for k, v in tensors.items()}
-                     if materialize_inputs else {})
-        inputs_np.update(host_extras)
-        if 'timestamps_ns' in host_extras:
-            outputs_np['timestamps'] = host_extras['timestamps_ns']
+        with tracing.span('infer.batch'):
+            tensors, host_extras = split_host_batch(batch)
+            B = next(iter(tensors.values())).shape[0]
+            with torch.inference_mode():
+                if mesh is not None:
+                    outputs = _mesh_forward(mesh, replicas, tensors, B, full,
+                                            create_images)
+                elif streaming:
+                    if states is None:
+                        if B != 1:
+                            raise ValueError('streaming inference runs one '
+                                             'clip a batch, got %d' % B)
+                        states = eve_lib.init_stream_state(model.spec, B,
+                                                           device)
+                    outputs = model(_to(tensors, device),
+                                    output_predictions=True,
+                                    create_images=create_images,
+                                    initial_states=states, return_states=True)
+                    states = outputs.pop('states')
+                else:
+                    outputs = model(_to(tensors, device),
+                                    output_predictions=True,
+                                    create_images=create_images)
+                with tracing.span('infer.d2h'):
+                    outputs_np = {k: v.cpu().numpy()
+                                  for k, v in outputs.items()}
+            inputs_np = ({k: v.numpy() for k, v in tensors.items()}
+                         if materialize_inputs else {})
+            inputs_np.update(host_extras)
+            if 'timestamps_ns' in host_extras:
+                outputs_np['timestamps'] = host_extras['timestamps_ns']
         yield current_step, inputs_np, outputs_np
 
 
 def _to(tensors, device):
-    return {k: v.to(device) for k, v in tensors.items()}
+    with tracing.span('infer.h2d'):
+        return {k: v.to(device) for k, v in tensors.items()}
 
 
 def _mesh_forward(mesh, replicas, tensors, rows, full, create_images):
@@ -197,10 +209,11 @@ def _mesh_forward(mesh, replicas, tensors, rows, full, create_images):
         tensors = {k: torch.cat([v, v[-1:].expand(full - rows,
                                                   *v.shape[1:])])
                    for k, v in tensors.items()}
+    with tracing.span('infer.h2d'):
+        shards = mesh_lib.shard_batch(mesh, tensors)
     parts = [replica(part, output_predictions=True,
                      create_images=create_images)
-             for replica, part in zip(replicas,
-                                      mesh_lib.shard_batch(mesh, tensors))]
+             for replica, part in zip(replicas, shards)]
     out = mesh_lib.gather_rows(parts, full // mesh.size)
     return {k: v[:rows] if v.ndim >= 1 and v.shape[0] == full else v
             for k, v in out.items()}

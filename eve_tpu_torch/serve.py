@@ -48,6 +48,15 @@ or device-resident), with the same contract:
   whatever device they lie on, so a session's results do not depend on
   its slot. Not with ``artifact=`` (eve_tpu's ``ValueError``).
 
+- While a torch profiler records, the batcher records spans
+  (``eve_tpu_torch.tracing``): ``serve.idle`` (waiting for a first
+  request), ``serve.gather`` (until the batch closes) and
+  ``serve.dispatch``, whose children are a ``serve.queue_wait`` a request
+  (submit to dispatch), ``serve.stack`` (host stacking), ``serve.h2d``
+  (a slice's inputs and states to the device; with ``device_resident``
+  their stacking there), ``serve.forward`` (a slice's forward launch) and
+  ``serve.d2h`` (the copies back, which wait for the card).
+
 PyTorch runs eagerly, so there is no per-signature compile cache;
 ``max_signatures`` still bounds the distinct input shapes a client can
 send.
@@ -72,6 +81,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from eve_tpu_torch import tracing
 from eve_tpu_torch.parallel import mesh as mesh_lib
 from eve_tpu_torch.utils.tensors import batch_to_tensors, tree_map
 
@@ -471,24 +481,29 @@ class ServingEngine:
                 self._try_add(r, reqs, sessions_in_batch)
             if not reqs:
                 try:
-                    first = self._queue.get(timeout=0.05)
+                    with tracing.span('serve.idle'):
+                        first = self._queue.get(timeout=0.05)
                 except queue.Empty:
                     continue
                 self._try_add(first, reqs, sessions_in_batch)
                 if not reqs:
                     continue
-            deadline = time.perf_counter() + self.max_delay_s
-            while len(reqs) < self.max_batch:
-                remaining = deadline - time.perf_counter()
-                if remaining <= 0:
-                    break
-                try:
-                    r = self._queue.get(timeout=remaining)
-                except queue.Empty:
-                    break
-                self._try_add(r, reqs, sessions_in_batch)
+            with tracing.span('serve.gather'):
+                deadline = time.perf_counter() + self.max_delay_s
+                while len(reqs) < self.max_batch:
+                    remaining = deadline - time.perf_counter()
+                    if remaining <= 0:
+                        break
+                    try:
+                        r = self._queue.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    self._try_add(r, reqs, sessions_in_batch)
             try:
-                self._dispatch(reqs)
+                with tracing.span('serve.dispatch') as dispatch:
+                    if dispatch is not None:
+                        _record_queue_waits(reqs, dispatch)
+                    self._dispatch(reqs)
             except Exception as e:  # noqa: BLE001 - the batcher must survive
                 logger.exception('dispatch failed')
                 newly_failed = [r for r in reqs if not r.future.done()]
@@ -614,27 +629,32 @@ class ServingEngine:
         launched = []
         with torch.inference_mode():
             for device, model, a, b in self._slices():
-                out, states = self._forward(model, *make_inputs(device, a, b))
+                with tracing.span('serve.h2d'):
+                    inputs = make_inputs(device, a, b)
+                with tracing.span('serve.forward'):
+                    out, states = self._forward(model, *inputs)
                 launched.append((range(a, b), out, states))
-            host = mesh_lib.gather_rows(
-                [{k: v.cpu().numpy() for k, v in out.items()}
-                 for _, out, _ in launched],
-                self.max_batch // len(launched))
+            with tracing.span('serve.d2h'):
+                host = mesh_lib.gather_rows(
+                    [{k: v.cpu().numpy() for k, v in out.items()}
+                     for _, out, _ in launched],
+                    self.max_batch // len(launched))
         return host, [(slots, states) for slots, _, states in launched]
 
     def _run_host(self, reqs, slot_states, pad):
         """The default mode: stack on the host, copy each slice in, copy
         every output and state out. Returns ``(host outputs, slot -> new
         state)``."""
-        batch = {}
-        for k in reqs[0].inputs:
-            stacked = np.stack([_host_array(r.inputs[k]) for r in reqs])
-            if pad:
-                stacked = np.concatenate(
-                    [stacked, np.repeat(stacked[-1:], pad, axis=0)])
-            batch[k] = stacked
-        states = tree_map(lambda *xs: np.concatenate(xs, axis=0),
-                          *slot_states)
+        with tracing.span('serve.stack'):
+            batch = {}
+            for k in reqs[0].inputs:
+                stacked = np.stack([_host_array(r.inputs[k]) for r in reqs])
+                if pad:
+                    stacked = np.concatenate(
+                        [stacked, np.repeat(stacked[-1:], pad, axis=0)])
+                batch[k] = stacked
+            states = tree_map(lambda *xs: np.concatenate(xs, axis=0),
+                              *slot_states)
 
         def make_inputs(device, a, b):
             return (batch_to_tensors({k: v[a:b] for k, v in batch.items()},
@@ -644,10 +664,11 @@ class ServingEngine:
                              self._state_dtypes))
 
         host, parts = self._run_slices(make_inputs)
-        new_states = tree_map(
-            lambda *xs: np.concatenate(xs, axis=0),
-            *[tree_map(lambda t: t.float().cpu().numpy(), states)
-              for _, states in parts])
+        with tracing.span('serve.d2h'):
+            new_states = tree_map(
+                lambda *xs: np.concatenate(xs, axis=0),
+                *[tree_map(lambda t: t.float().cpu().numpy(), states)
+                  for _, states in parts])
         return host, lambda i: tree_map(lambda x: np.copy(x[i:i + 1]),
                                         new_states)
 
@@ -740,6 +761,17 @@ class ServingEngine:
             self.stats['requests'] += n
             self.stats['batches'] += 1
             self.stats['batched_slots'] += n
+
+
+def _record_queue_waits(reqs, dispatch):
+    """One ``serve.queue_wait`` span a request, keyed by its session: from
+    its submit stamp (``time.perf_counter``, shifted once onto the spans'
+    clock) to the start of ``dispatch``, the open span it is a child of."""
+    shift_ns = tracing.now_ns() - time.perf_counter_ns()
+    for r in reqs:
+        tracing.record('serve.queue_wait',
+                       int(r.enqueued_at * 1e9) + shift_ns, dispatch.start_ns,
+                       key=r.session_id)
 
 
 def _host_array(v):

@@ -15,6 +15,11 @@ optimizer updates, ``step // k``.
 one backward of the sum of each source's ``full_loss``, each source's
 scalars prefixed ``<tag>/``.
 
+While a torch profiler records, each step is a ``train.step`` span
+(``eve_tpu_torch.tracing``) with ``train.forward``, ``train.backward`` and
+``train.update`` children, each also timed on the card by a CUDA event
+pair.
+
 Every 0-dim output comes back as a device tensor, with a ``nan_flag``;
 nothing here waits for the card, so the host syncs only where the caller
 reads a value (the harness: at log, checkpoint and test intervals).
@@ -54,6 +59,7 @@ from typing import Callable
 
 import torch
 
+from eve_tpu_torch import tracing
 from eve_tpu_torch.parallel import mesh as mesh_lib
 from eve_tpu_torch.train import optim as optim_lib
 
@@ -153,8 +159,11 @@ def accumulate_gradients(model, batch, generator=None, seq=None):
     """One ``forward(training=True)`` and ``full_loss.backward()``; the
     gradients add to the parameters' ``.grad``. Returns the outputs.
     ``seq``: the seq axis the batch's frames are split over."""
-    out = model(batch, training=True, generator=generator, seq_group=seq)
-    out['full_loss'].backward()
+    with tracing.span('train.forward', device=True):
+        out = model(batch, training=True, generator=generator,
+                    seq_group=seq)
+    with tracing.span('train.backward', device=True):
+        out['full_loss'].backward()
     return out
 
 
@@ -165,13 +174,15 @@ def train_step(state, batch, generator=None):
     offset augmentation. Returns the 0-dim outputs and ``nan_flag`` as
     device tensors.
     """
-    model = state.model
-    model.train()
-    out = accumulate_gradients(model, batch, generator, state.seq)
-    state.step += 1
-    if state.step % state.accumulation_steps == 0:
-        apply_update(state)
-    return scalar_outputs(out, state.data_parallel, state.data_group)
+    with tracing.span('train.step'):
+        model = state.model
+        model.train()
+        out = accumulate_gradients(model, batch, generator, state.seq)
+        state.step += 1
+        if state.step % state.accumulation_steps == 0:
+            with tracing.span('train.update', device=True):
+                apply_update(state)
+        return scalar_outputs(out, state.data_parallel, state.data_group)
 
 
 def accumulate_multi_source_gradients(model, batches, generators=None,
@@ -185,14 +196,16 @@ def accumulate_multi_source_gradients(model, batches, generators=None,
     """
     total = 0.0
     scalars = {}
-    for tag in sorted(batches):
-        out = model(batches[tag], training=True,
-                    generator=(generators or {}).get(tag), seq_group=seq)
-        for k, v in out.items():
-            if isinstance(v, torch.Tensor) and v.ndim == 0:
-                scalars['%s/%s' % (tag, k)] = v
-        total = total + out['full_loss']
-    total.backward()
+    with tracing.span('train.forward', device=True):
+        for tag in sorted(batches):
+            out = model(batches[tag], training=True,
+                        generator=(generators or {}).get(tag), seq_group=seq)
+            for k, v in out.items():
+                if isinstance(v, torch.Tensor) and v.ndim == 0:
+                    scalars['%s/%s' % (tag, k)] = v
+            total = total + out['full_loss']
+    with tracing.span('train.backward', device=True):
+        total.backward()
     scalars['full_loss'] = total
     return scalars
 
@@ -202,13 +215,15 @@ def multi_source_train_step(state, batches, generators=None):
     and ``generators`` ``{tag: generator}``. Returns every source's 0-dim
     outputs prefixed ``<tag>/``, the summed ``full_loss`` and a
     ``nan_flag`` over them all."""
-    state.model.train()
-    out = accumulate_multi_source_gradients(state.model, batches, generators,
-                                            state.seq)
-    state.step += 1
-    if state.step % state.accumulation_steps == 0:
-        apply_update(state)
-    return scalar_outputs(out, state.data_parallel, state.data_group)
+    with tracing.span('train.step'):
+        state.model.train()
+        out = accumulate_multi_source_gradients(state.model, batches,
+                                                generators, state.seq)
+        state.step += 1
+        if state.step % state.accumulation_steps == 0:
+            with tracing.span('train.update', device=True):
+                apply_update(state)
+        return scalar_outputs(out, state.data_parallel, state.data_group)
 
 
 def apply_update(state):

@@ -355,3 +355,34 @@ def test_released_pt_weights_load_through_both_loaders(
     model = infer.model_setup(tc, device='cpu', pretrained_dir=str(pdir))
     for k, v in other.eye_net.state_dict().items():
         assert torch.equal(model.eye_net.state_dict()[k], v), k
+
+
+def test_iterator_spans_with_a_profiler(model):
+    """Under a profiler each batch gives one ``infer.batch`` with one
+    ``infer.h2d`` and one ``infer.d2h`` child, and the outputs equal the
+    same batches' with no profiler, bit for bit."""
+    from eve_tpu_torch import tracing
+    from tests.test_torch_tracing import all_threads_profiler
+    clips = _Clips(_batch(5, batch_size=1, sequence_len=3 * T), T)
+
+    def run():
+        return list(infer.iterator(
+            model, DataLoader(clips, batch_size=2, num_workers=0),
+            create_images=False))
+    plain = run()
+    tracing.clear()
+    with all_threads_profiler():
+        traced = run()
+    found = tracing.spans()
+    tracing.clear()
+    for (_, _, want), (_, _, got) in zip(plain, traced):
+        assert set(want) == set(got)
+        for k in want:
+            assert np.array_equal(want[k], got[k]), k
+    roots = [s for s in found if s.name == 'infer.batch']
+    assert len(roots) == len(traced) == 2
+    for root in roots:
+        kids = [s for s in found if s.parent == root.id]
+        assert sorted(s.name for s in kids) == ['infer.d2h', 'infer.h2d']
+        assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
+                   for s in kids)

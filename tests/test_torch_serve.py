@@ -273,3 +273,74 @@ def test_later_slice_modes_raise(specs, params):
         assert engine.device_resident
     finally:
         engine.stop()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [np.asarray(tree.cpu() if isinstance(tree, torch.Tensor)
+                       else tree)]
+
+
+@pytest.mark.parametrize('device_resident', [False, True],
+                         ids=['host', 'resident'])
+def test_spans_of_each_dispatch_and_request(specs, params, device_resident):
+    """Under a profiler each dispatch gives one ``serve.dispatch`` with its
+    stacking, copies and forward launch as children and one
+    ``serve.queue_wait`` a request (keyed by its session); outputs and
+    states equal those of the same requests served with no profiler, bit
+    for bit."""
+    from eve_tpu_torch import tracing
+    from tests.test_torch_tracing import all_threads_profiler
+    clips = _clips(3, 3, T=2)
+
+    def serve(engine):
+        sids = [engine.open_session() for _ in clips]
+        outs = []
+        for t in range(2):
+            futures = [engine.submit({k: v[t:t + 1] for k, v in c.items()},
+                                     session_id=sid)
+                       for sid, c in zip(sids, clips)]
+            outs.append([f.result(timeout=120) for f in futures])
+        return sids, outs, [engine._sessions[s].state for s in sids]
+
+    engine = ServingEngine(specs[1], convert.eve_state_dict(params),
+                           device='cpu', max_batch=3, max_delay_ms=200.0,
+                           device_resident=device_resident)
+    try:
+        _, plain, plain_states = serve(engine)
+        tracing.clear()
+        before = engine.get_stats()['batches']
+        with all_threads_profiler():
+            sids, traced, states = serve(engine)
+        dispatches = engine.get_stats()['batches'] - before
+    finally:
+        engine.stop()
+    for want, got in ((plain, traced), (plain_states, states)):
+        for a, b in zip(_leaves(want), _leaves(got)):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+    found = tracing.spans()
+    tracing.clear()
+    roots = [s for s in found if s.name == 'serve.dispatch']
+    assert len(roots) == dispatches >= 2
+    assert all(s.parent is None for s in found
+               if s.name in ('serve.idle', 'serve.gather'))
+    assert sum(s.name == 'serve.gather' for s in found) >= dispatches
+    waits = []
+    for root in roots:
+        kids = [s for s in found if s.parent == root.id]
+        names = sorted(s.name for s in kids if s.name != 'serve.queue_wait')
+        want = ['serve.d2h', 'serve.forward', 'serve.h2d']
+        if not device_resident:
+            want = sorted(want + ['serve.d2h', 'serve.stack'])
+        assert names == want
+        for s in kids:
+            if s.name == 'serve.queue_wait':
+                assert s.start_ns <= s.end_ns == root.start_ns
+                waits.append(s)
+            else:
+                assert root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
+    assert sorted(w.key for w in waits) == sorted(sids * 2)
+    assert all(0 <= w.ms < 120_000 for w in waits)

@@ -16,7 +16,8 @@
 - ``Tensorboard.add_image`` writes through tensorboardX and is a no-op on
   the JSON-lines fallback; ``add_graph`` writes the module tree.
 - With ``profile_dir`` the loop writes a Chrome trace of steps +5..+10,
-  stopped at the end of a run shorter than the window too.
+  stopped at the end of a run shorter than the window too, with the train
+  step's spans in it.
 """
 
 import json
@@ -161,4 +162,8 @@ def test_profile_dir_writes_a_trace(tmp_path):
     with open(profile_dir / 'steps_0000006-0000008.pt.trace.json') as f:
         trace = json.load(f)
     assert trace['traceEvents']
+    # The train step's spans come with the window, one set a step.
+    names = [e.get('name') for e in trace['traceEvents']]
+    assert [names.count('train.' + n) for n in
+            ('step', 'forward', 'backward', 'update')] == [3, 3, 3, 3]
     assert os.path.isfile(os.path.join(exp.output_dir, 'model.txt'))

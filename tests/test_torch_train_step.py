@@ -299,3 +299,43 @@ def test_kappas_drawn_on_a_cpu_generator():
     batch['left_kappa_fake'] = labels['left_kappa_fake']
     with pytest.raises(ValueError, match='both'):
         teve.calculate_additional_labels(spec, batch, None, training=True)
+
+
+@pytest.mark.parametrize('multi_source', [False, True],
+                         ids=['one source', 'two sources'])
+def test_step_spans_with_a_profiler(case, multi_source):
+    """Under a profiler each step gives one ``train.step`` with
+    ``train.forward``, ``train.backward`` and ``train.update`` children
+    (no event pair off a card), and the parameters equal those of the same
+    steps with no profiler, bit for bit."""
+    from eve_tpu_torch import tracing
+    from tests.test_torch_tracing import all_threads_profiler
+    _, tc, params, batch, _, _ = case
+    tbatch = teve.batch_to_tensors(batch, 'cpu')
+
+    def train(steps):
+        state = _port_state(tc, params)
+        for i in range(steps):
+            if multi_source:
+                tstep.multi_source_train_step(
+                    state, {'a': tbatch, 'b': tbatch},
+                    {t: torch.Generator().manual_seed(i) for t in 'ab'})
+            else:
+                tstep.train_step(state, tbatch)
+        return state.model.state_dict()
+    plain = train(2)
+    tracing.clear()
+    with all_threads_profiler():
+        traced = train(2)
+    found = tracing.spans()
+    tracing.clear()
+    for k, v in plain.items():
+        assert torch.equal(v, traced[k]), k
+    roots = [s for s in found if s.name == 'train.step']
+    assert len(roots) == 2
+    for root in roots:
+        kids = [s for s in found if s.parent == root.id]
+        assert [s.name for s in kids] == ['train.forward', 'train.backward',
+                                          'train.update']
+        assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
+                   and s.device_ms is None for s in kids)
