@@ -15,7 +15,12 @@
    the serving
    path's N=80 and the Codalab path's N=3840 (render also at S=3) beside an
    empty kernel of the same launch shape, the launch floor, and checks the
-   soft-argmax's cluster choice at N=3840.
+   soft-argmax's cluster choice at N=3840. Then the norm kernel
+   (``norm_kernel_phase``) at the main path's extreme calls
+   (``NORM_CALLS``, a Codalab batch): the share of elements it differs from
+   its plain version at, its kernels a call (one) against the plain
+   version's, and its time beside the plain version, an empty kernel of as
+   many CTAs and its 4-bytes-an-element bound.
 4. Serve phase: the full-width ``configs/refine_net.json`` model (128x128
    eyes, CLSTM RefineNet, screen content) on seeded random weights, behind
    ``ServingEngine(device='cuda', max_batch=8)``: 8 sessions x 3 consecutive
@@ -661,6 +666,143 @@ def kernel_timings(hk, n):
     return rows
 
 
+# The norm kernel's extreme calls on the main path, a Codalab batch (B =
+# 128 x T = 30: 7,680 eye images, 3,840 frames): name -> ((N, C, H, W),
+# affine, activation).
+NORM_CALLS = {
+    'eyenet_stem': ((7680, 64, 64, 64), False, 'relu'),
+    'refinenet_level0_decoder': ((3840, 64, 72, 128), True, 'leaky'),
+    'eyenet_layer4': ((7680, 512, 4, 4), False, 'relu'),
+    'refinenet_level4': ((3840, 256, 5, 8), True, 'relu'),
+}
+NORM_SLOPE = 0.010009765625  # LeakyReLU's 0.01 rounded to bf16
+
+
+def _kernels_per_call(fn):
+    """Device kernels one call of ``fn`` launches, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if getattr(e, 'self_device_time_total', 0) > 0
+               and e.self_cpu_time_total == 0)
+
+
+def _launch_grid(fn, kernel):
+    """``(CTAs, threads a CTA)`` of the one ``kernel`` launch of a call of
+    ``fn``, from the profiler's trace of it."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'trace.json')
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)['traceEvents']
+    (args,) = [e['args'] for e in events if e.get('cat') == 'kernel'
+               and kernel in e.get('name', '')]
+    return int(np.prod(args['grid'])), int(np.prod(args['block']))
+
+
+def norm_kernel_phase(nk, hk):
+    """The norm kernel at ``NORM_CALLS``: the share of elements where it
+    differs from its plain version (the order of a plane's float32 sums
+    may tip the bf16 rounding of its scale or shift; under 0.1%), then its
+    ms beside the plain version's, an empty kernel of as many CTAs as the
+    traced launch (256 threads a CTA: the launch floor) and its bound, 4
+    bytes an element at 3.35 TB/s, and the kernels each launches a
+    call."""
+    dev = torch.device('cuda', torch.cuda.current_device())
+    rows = {}
+    for name, (shape, affine, act) in NORM_CALLS.items():
+        n, c, h, w = shape
+        gen = torch.Generator(dev).manual_seed(0)
+        x = (2.0 * torch.randn(shape, device=dev, generator=gen)
+             + torch.randn((n, c, 1, 1), device=dev, generator=gen)
+             ).to(torch.bfloat16)
+        weight = bias = None
+        if affine:
+            weight = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
+            bias = 0.1 * torch.randn(c, device=dev, generator=gen)
+        args = (x, weight, bias, 1e-5, act, NORM_SLOPE)
+        lanes, vecs = nk.norm_launch(h * w)
+        before = nk.LAUNCHES['instance_norm']
+        ours = nk.instance_norm(*args)
+        ref = nk.instance_norm_plain(*args)
+        differ = int((ours != ref).sum()) / x.numel()
+        del ours, ref
+        if differ > 1e-3:
+            raise AssertionError('norm %s: %.3g of the elements differ from '
+                                 'the plain version' % (name, differ))
+        launches = _kernels_per_call(lambda: nk.instance_norm(*args))
+        plain_launches = _kernels_per_call(
+            lambda: nk.instance_norm_plain(*args))
+        ctas, threads = _launch_grid(lambda: nk.instance_norm(*args),
+                                     'instance_norm_kernel')
+        if launches != 1 or nk.LAUNCHES['instance_norm'] != before + 3:
+            raise AssertionError('norm %s: %d kernels a call, %d counted'
+                                 % (name, launches,
+                                    nk.LAUNCHES['instance_norm'] - before))
+        iters = 20 if x.numel() > 10 ** 9 else 50
+        rows[name] = {
+            'shape': list(shape), 'affine': affine, 'act': act,
+            'lanes': lanes, 'vecs': vecs, 'ctas': ctas, 'threads': threads,
+            'ms': time_gpu(lambda: nk.instance_norm(*args), iters),
+            'plain_ms': time_gpu(lambda: nk.instance_norm_plain(*args),
+                                 iters),
+            'launch_floor_ms': time_gpu(
+                lambda: hk.launch_empty_kernel(ctas, 1, dev), iters),
+            'bound_ms': x.numel() * 4 / PEAK_BYTES_PER_S * 1e3,
+            'bound_by': 'bytes', 'library_ms': None,
+            'launches': launches, 'plain_launches': plain_launches,
+            'differ_share': differ,
+        }
+        del x, args
+        torch.cuda.empty_cache()
+        r = rows[name]
+        log('norm %s %s: kernel %.5f ms, plain %.5f ms, bound %.5f ms '
+            '(bytes), launch floor %.5f ms, %d CTAs of %d threads (%d lanes '
+            'x %d vectors a plane), %d vs %d kernels a call, %.2e differ'
+            % (name, shape, r['ms'], r['plain_ms'], r['bound_ms'],
+               r['launch_floor_ms'], ctas, threads, lanes, vecs, launches,
+               plain_launches, differ))
+    # Host us a call at a small shape, where the host sets the pace: the
+    # op (its dispatch and the launch), the wrapper without autograd (past
+    # the op), its CUDA implementation alone, and the plain version's eager
+    # launches.
+    x = torch.randn((8, 64, 4, 4), device=dev).to(torch.bfloat16)
+    op = torch.ops.eve_tpu_torch.instance_norm
+    host = {}
+    for key, fn in (
+            ('op_host_us', lambda: op(x, None, None, 1e-5, 'relu', 0.0)),
+            ('wrapper_host_us', lambda: nk.instance_norm(x, act='relu')),
+            ('direct_host_us',
+             lambda: nk._norm_cuda(x, None, None, 1e-5, 'relu', 0.0)),
+            ('plain_host_us',
+             lambda: nk.instance_norm_plain(x, None, None, 1e-5, 'relu',
+                                            0.0))):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        host[key] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    log('norm host us a call at (8, 64, 4, 4): %s'
+        % ', '.join('%s %.1f' % kv for kv in host.items()))
+    rows['host'] = host
+    return rows
+
+
 def labelled_forward_phase(hk, model, spec):
     """A forward with ground-truth PoG on the card: the render launches
     twice (the initial estimate, S=1; the three label sigmas with their
@@ -676,18 +818,19 @@ def labelled_forward_phase(hk, model, spec):
     with torch.inference_mode():
         model(gpu_batch, output_predictions=True)  # warm-up
         torch.cuda.synchronize()
-        hk.reset_launch_counts()
+        reset_launch_counts(hk)
         out = model(gpu_batch, output_predictions=True)
         torch.cuda.synchronize()
-        launches = dict(hk.LAUNCHES)
+        launches = launch_counts(hk)
         gpu_labels = eve_lib.calculate_additional_labels(spec, gpu_batch)
         cpu_labels = eve_lib.calculate_additional_labels(
             spec, eve_lib.batch_to_tensors(batch, 'cpu'))
     log('labelled forward B=%d T=%d: kernel launches %s'
         % (SESSIONS, T, launches))
-    if launches != {'render_heatmaps': 2, 'soft_argmax': 1}:
+    if heatmaps(launches) != {'render_heatmaps': 2, 'soft_argmax': 1}:
         raise AssertionError('labelled forward launched %s, want 2 renders '
                              'and 1 soft-argmax' % launches)
+    check_norms(launches, model.spec, 1, 'labelled forward')
     for k in ('full_loss', 'loss_ce_heatmap_final', 'PoG_px_final'):
         if k in out and not bool(torch.isfinite(out[k]).all()):
             raise AssertionError('labelled forward: %s is not finite' % k)
@@ -865,7 +1008,7 @@ def serve_phase(hk):
         torch.cuda.synchronize()
 
         # --- the main path, counted ---
-        hk.reset_launch_counts()
+        reset_launch_counts(hk)
         batches_before = engine.get_stats()['batches']
         results, submitted, done = {}, {}, {}
 
@@ -891,7 +1034,7 @@ def serve_phase(hk):
         for key, fut in pending:
             results[key] = fut.result(timeout=600)
         wall = time.perf_counter() - start
-        launches = dict(hk.LAUNCHES)
+        launches = launch_counts(hk)
         dispatches = engine.get_stats()['batches'] - batches_before
         # --- end of the counted run ---
 
@@ -915,6 +1058,7 @@ def serve_phase(hk):
                 raise AssertionError(
                     '%s launched %d times over %d dispatches, want one '
                     'launch a dispatch' % (name, launches[name], dispatches))
+        check_norms(launches, engine.model.spec, dispatches, 'serve')
         for key, out in results.items():
             check_outputs(out, T, 'request %s' % (key,))
         for k in ('PoG_px_initial', 'PoG_px_final'):
@@ -1098,13 +1242,68 @@ def profile_train_step(state, batch, device, steps=2, what='train profile'):
     return busy_ms / wall_ms
 
 
-def counted(hk, fn):
-    """Run ``fn`` with the launch counts at 0; ``(result, launches)``."""
-    torch.cuda.synchronize()
+HEATMAP_KERNELS = ('render_heatmaps', 'soft_argmax')
+
+
+def reset_launch_counts(hk):
+    """Both kernel modules' launch counts to 0: the heatmap kernels' and
+    the norm kernel's."""
+    from eve_tpu_torch.kernels import norm_kernels as nk
     hk.reset_launch_counts()
+    nk.reset_launch_counts()
+
+
+def launch_counts(hk):
+    """Launches since ``reset_launch_counts``, by kernel: the heatmap
+    kernels' and the norm kernel's (``instance_norm``)."""
+    from eve_tpu_torch.kernels import norm_kernels as nk
+    return dict(hk.LAUNCHES, **nk.LAUNCHES)
+
+
+def heatmaps(launches):
+    """The heatmap kernels' part of ``launch_counts``."""
+    return {k: launches[k] for k in HEATMAP_KERNELS}
+
+
+def norms_a_forward(spec_):
+    """The norm kernel's launches in one forward of an EVE of ``spec_``:
+    one a norm at bfloat16 (each ``InstanceNorm`` runs once a forward),
+    none at float32."""
+    from eve_tpu_torch.models import eve as eve_lib
+    from eve_tpu_torch.models.layers import InstanceNorm
+    if spec_.compute_dtype != 'bfloat16':
+        return 0
+    with torch.device('meta'):  # names and shapes only
+        model = eve_lib.EVE(spec_)
+    return sum(isinstance(m, InstanceNorm) for m in model.modules())
+
+
+def check_norms(launches, spec_, forwards, what):
+    """The norm kernel's launches of a counted run of ``forwards`` forwards
+    of an EVE of ``spec_``: ``norms_a_forward`` each; with ``forwards``
+    None (a run whose forwards are not counted here), some at bfloat16 and
+    none at float32."""
+    per = norms_a_forward(spec_)
+    got = launches['instance_norm']
+    if forwards is None:
+        want = 'some' if per else 0
+        ok = (got > 0) == (per > 0)
+    else:
+        want = per * forwards
+        ok = got == want
+    if not ok:
+        raise AssertionError('%s: the norm kernel launched %d times, want '
+                             '%s (%d a forward)' % (what, got, want, per))
+
+
+def counted(hk, fn):
+    """Run ``fn`` with the launch counts at 0; ``(result, launches)``,
+    ``launches`` by ``launch_counts``."""
+    torch.cuda.synchronize()
+    reset_launch_counts(hk)
     result = fn()
     torch.cuda.synchronize()
-    return result, dict(hk.LAUNCHES)
+    return result, launch_counts(hk)
 
 
 def compare_card_cpu(spec, card, what_='train'):
@@ -1214,9 +1413,10 @@ def training_phase(hk, card):
         '%.5f' % losses[k] for k in sorted(losses))))
     log('train: kernel launches %s over %d steps and %d eval batches (want '
         '%s)' % (launches, steps, eval_batches, want))
-    if steps != TRAIN_STEPS or launches != want:
+    if steps != TRAIN_STEPS or heatmaps(launches) != want:
         raise AssertionError('training main path: %d steps, launches %s'
                              % (steps, launches))
+    check_norms(launches, exp.spec, steps + eval_batches, 'training')
     step_s = float(np.median(walls[2:]))
     log('train: step wall %.1f ms (median of steps 3-%d, data wait '
         'included), %.1f training frames/s, peak device memory %.2f GiB '
@@ -1282,10 +1482,12 @@ def training_phase(hk, card):
     _, per_eval = counted(hk, lambda: step_lib.eval_step(model, batch))
     log('train: kernel launches per training step %s, per eval batch %s'
         % (per_step, per_eval))
-    if per_step != {'render_heatmaps': 3, 'soft_argmax': 1} or \
-            per_eval != {'render_heatmaps': 2, 'soft_argmax': 1}:
+    if heatmaps(per_step) != {'render_heatmaps': 3, 'soft_argmax': 1} or \
+            heatmaps(per_eval) != {'render_heatmaps': 2, 'soft_argmax': 1}:
         raise AssertionError('launches per step %s, per eval batch %s'
                              % (per_step, per_eval))
+    check_norms(per_step, model.spec, 1, 'a training step')
+    check_norms(per_eval, model.spec, 1, 'an eval batch')
     busy = profile_train_step(exp2.state, batch, card)
 
     compare_card_cpu(exp.spec, card)
@@ -1352,14 +1554,14 @@ def train_cli_child(args):
     harness.main_loop_iterator = observed_loop
     harness.do_final_full_test = observed_final_test
     config, parsed = harness.script_init_common(cli_argv(out_base))
-    hk.reset_launch_counts()
+    reset_launch_counts(hk)
     try:
         train_cli.run(config, parsed.device,
                       [spec('synthetic', 11, CLI_CLIPS)],
                       [spec('synthetic_val', 12, VAL_CLIPS)],
                       output_dir_base=out_base)
     finally:
-        record['launches'] = dict(hk.LAUNCHES)
+        record['launches'] = launch_counts(hk)
         record['peak'] = torch.cuda.max_memory_allocated()
         with open(record_path, 'w') as f:
             json.dump(record, f)
@@ -1428,7 +1630,7 @@ def cli_launches_wanted():
     val_batches = -(-VAL_CLIPS // TRAIN_B)
     evals = len(every) * (1 + val_batches) + val_batches
     return {'render_heatmaps': 3 * CLI_STEPS + 2 * evals,
-            'soft_argmax': CLI_STEPS + evals}
+            'soft_argmax': CLI_STEPS + evals, 'instance_norm': 0}
 
 
 def preempt_and_resume():
@@ -1615,9 +1817,10 @@ def echo_multi_source(hk, card):
     keys = steps[-1][1]
     if len(steps) != ECHO_STEPS or any(n * ECHO != len(steps)
                                        for n in loads.values()) or \
-            launches != want:
+            heatmaps(launches) != want:
         raise AssertionError('echo and two sources: %d steps, loads %s, '
                              'launches %s' % (len(steps), loads, launches))
+    check_norms(launches, exp.spec, None, 'echo and two sources')
     total = keys['src_a/full_loss'] + keys['src_b/full_loss']
     if not np.isclose(keys['full_loss'], total, rtol=1e-6) or \
             not all(np.isfinite(v) for _, m in steps for v in m.values()):
@@ -1743,10 +1946,11 @@ def eye_net_phase(hk, card, compute_dtype='float32', native=False):
         'kernel launches %s (want none: no RefineNet)' % (
             what, EYE_B, TRAIN_T, len(losses),
             ', '.join('%.4f' % losses[k] for k in sorted(losses)), launches))
-    if len(losses) != EYE_STEPS or any(launches.values()) or \
+    if len(losses) != EYE_STEPS or any(heatmaps(launches).values()) or \
             not all(np.isfinite(v) for v in losses.values()):
         raise AssertionError('%s run: %d steps, launches %s'
                              % (what, len(losses), launches))
+    check_norms(launches, exp.spec, None, what)
     check_float32_state(exp.state, what)
     log('%s: step wall %.1f ms (median of steps 3-%d, data wait and a '
         'loss read included), %.1f training frames/s, peak device memory '
@@ -1875,10 +2079,11 @@ def eval_phase(hk, card):
         model, DataLoader(video, 1, num_workers=0), streaming=True)))
     log('eval: streamed %d chunks of T=%d at batch 1: kernel launches %s'
         % (STREAM_CHUNKS, EVAL_T, stream_launches))
-    if stream_launches != {'render_heatmaps': 2 * STREAM_CHUNKS,
-                           'soft_argmax': STREAM_CHUNKS}:
+    if heatmaps(stream_launches) != {'render_heatmaps': 2 * STREAM_CHUNKS,
+                                     'soft_argmax': STREAM_CHUNKS}:
         raise AssertionError('streaming launched %s, want render 2 and '
                              'soft-argmax 1 a chunk' % stream_launches)
+    check_norms(stream_launches, model.spec, STREAM_CHUNKS, 'eval stream')
     for step, _, out in streamed:
         check_finite(out, image_keys, 'streamed chunk %d' % step)
     whole_batch = {k: np.stack([np.concatenate([c[k] for c in video.clips])])
@@ -1952,11 +2157,12 @@ def eval_phase(hk, card):
     log('eval: Codalab, %d clips of T=%d in %d batches of up to %d: kernel '
         'launches %s' % (CODALAB_CLIPS, EVAL_T, n_batches, batch_size,
                          launches))
-    if n_batches != -(-CODALAB_CLIPS // batch_size) or launches != {
+    if n_batches != -(-CODALAB_CLIPS // batch_size) or heatmaps(launches) != {
             'render_heatmaps': n_batches, 'soft_argmax': n_batches}:
         raise AssertionError('Codalab: %d batches, launches %s, want render '
                              '1 and soft-argmax 1 a batch'
                              % (n_batches, launches))
+    check_norms(launches, model.spec, n_batches, 'eval Codalab')
     log('eval: Codalab %.1f clips/s, %.1f frames/s (%.3f s for %d clips, '
         'loading and copies included); batch walls %s s; peak device '
         'memory %.2f GiB at batch %d (%s)'
@@ -2108,7 +2314,7 @@ def bf16_serve_phase(hk):
         torch.cuda.synchronize()
 
         # --- the bfloat16 serving path, counted ---
-        hk.reset_launch_counts()
+        reset_launch_counts(hk)
         batches_before = engine.get_stats()['batches']
         start = time.perf_counter()
         sids = [engine.open_session() for _ in range(SESSIONS)]
@@ -2117,7 +2323,7 @@ def bf16_serve_phase(hk):
             for c in range(CHUNKS) for s, sid in enumerate(sids)}
         results = {key: f.result(timeout=600) for key, f in futures.items()}
         wall = time.perf_counter() - start
-        launches = dict(hk.LAUNCHES)
+        launches = launch_counts(hk)
         dispatches = engine.get_stats()['batches'] - batches_before
         # --- end of the counted run ---
         log('bf16 serve: %d requests (%d frames) in %d dispatches, %.3f s, '
@@ -2129,6 +2335,7 @@ def bf16_serve_phase(hk):
                 raise AssertionError('bf16 serve: %s launched %d times over '
                                      '%d dispatches' % (name, launches[name],
                                                         dispatches))
+        check_norms(launches, spec, dispatches, 'bf16 serve')
         for key, out in results.items():
             check_outputs(out, T, 'bf16 request %s' % (key,))
 
@@ -2270,10 +2477,11 @@ def bf16_training_phase(hk, card):
     log('bf16 train: %d steps, full_loss %s; kernel launches %s' % (
         steps, ', '.join('%.5f' % losses[k] for k in sorted(losses)),
         launches))
-    if steps != BF16_STEPS or launches != {'render_heatmaps': 3 * steps,
-                                           'soft_argmax': steps}:
+    if steps != BF16_STEPS or heatmaps(launches) != {
+            'render_heatmaps': 3 * steps, 'soft_argmax': steps}:
         raise AssertionError('bf16 training: %d steps, launches %s'
                              % (steps, launches))
+    check_norms(launches, exp.spec, steps, 'bf16 training')
     check_float32_state(exp.state, 'bf16 train')
     step_s = float(np.median(walls[2:]))
     loader = harness.init_datasets(config, train_sets, test_sets)[0][
@@ -2320,10 +2528,11 @@ def codalab_batch_phase(hk, card, what, **overrides):
         'kernel launches %s' % (what, CODALAB_BATCH, EVAL_T, wall,
                                 CODALAB_BATCH * EVAL_T / wall,
                                 peak / 2 ** 30, launches))
-    if len(outs) != 1 or launches != {'render_heatmaps': 1,
-                                      'soft_argmax': 1}:
+    if len(outs) != 1 or heatmaps(launches) != {'render_heatmaps': 1,
+                                                'soft_argmax': 1}:
         raise AssertionError('%s Codalab: %d batches, launches %s'
                              % (what, len(outs), launches))
+    check_norms(launches, spec_, 1, what + ' Codalab')
     if outs[0]['PoG_px_final'].shape != (CODALAB_BATCH, EVAL_T, 2):
         raise AssertionError('%s Codalab: PoG_px_final %s'
                              % (what, outs[0]['PoG_px_final'].shape))
@@ -2573,6 +2782,8 @@ def serving_modes(hk, spec_, state_dict, what, ref=None):
             raise AssertionError('%s %s: %d dispatches, launches %s, want '
                                  'one of each kernel a dispatch' % (
                                      what, mode, dispatches, launches[mode]))
+        check_norms(launches[mode], spec_, dispatches,
+                    '%s %s' % (what, mode))
         for key, out in runs[mode][0].items():
             check_outputs(out, T, '%s %s request %s' % (what, mode, key))
         wall_ms = 1e3 * float(np.mean(walls))
@@ -2707,10 +2918,11 @@ def native_training_phase(hk, card, compute_dtype):
     log('%s: %d steps, full_loss %s; kernel launches %s' % (
         what, steps, ', '.join('%.5f' % losses[k] for k in sorted(losses)),
         launches))
-    if steps != NATIVE_STEPS or launches != {'render_heatmaps': 3 * steps,
-                                             'soft_argmax': steps}:
+    if steps != NATIVE_STEPS or heatmaps(launches) != {
+            'render_heatmaps': 3 * steps, 'soft_argmax': steps}:
         raise AssertionError('%s: %d steps, launches %s' % (what, steps,
                                                             launches))
+    check_norms(launches, exp.spec, steps, what)
     check_float32_state(exp.state, what)
     step_s = float(np.median(walls[1:]))
     log('%s: step wall %.1f ms (median of steps 2-%d, data wait included), '
@@ -2767,8 +2979,9 @@ def native_variants_phase(hk, card):
         check_finite(out, ('PoG_px_initial', 'PoG_px_final', 'g_final',
                            'left_pupil_size', 'full_loss'),
                      'native %s forward' % name)
-        if out['PoG_px_final'].shape != (SESSIONS, T, 2) or launches[name] \
-                != {'render_heatmaps': 2, 'soft_argmax': 1}:
+        check_norms(launches[name], spec_, 1, 'native %s forward' % name)
+        if out['PoG_px_final'].shape != (SESSIONS, T, 2) or heatmaps(
+                launches[name]) != {'render_heatmaps': 2, 'soft_argmax': 1}:
             raise AssertionError('native %s forward: PoG_px_final %s, '
                                  'launches %s' % (name, out['PoG_px_final']
                                                   .shape, launches[name]))
@@ -2857,12 +3070,12 @@ def export_child(args):
     sys.path.insert(0, ROOT)
     from eve_tpu_torch.cli import export_model
     from eve_tpu_torch.kernels import heatmap_kernels as hk
-    hk.reset_launch_counts()
+    reset_launch_counts(hk)
     t0 = time.perf_counter()
     export_model.main(argv)
     with open(record_path, 'w') as f:
         json.dump({'seconds': time.perf_counter() - t0,
-                   'launches': dict(hk.LAUNCHES)}, f)
+                   'launches': launch_counts(hk)}, f)
 
 
 def artifact_serve_child(args):
@@ -3032,8 +3245,9 @@ def artifact_forward(hk, spec_, state_dict, clips, what):
     artifact = load_exported(blob, 'cuda')
     artifact(batch)  # warm-up
     out, launches = counted(hk, lambda: artifact(batch))
-    if launches != {'render_heatmaps': 1, 'soft_argmax': 1}:
+    if heatmaps(launches) != {'render_heatmaps': 1, 'soft_argmax': 1}:
         raise AssertionError('%s: a dispatch launched %s' % (what, launches))
+    check_norms(launches, spec_, 1, what + ' dispatch')
     return ([{k: v[i].float().cpu().numpy() for k, v in out.items()}
              for i in range(len(clips))], launches, seconds, len(blob))
 
@@ -3166,7 +3380,8 @@ def remat_phase(hk, card, ref):
         base = runs['none']
         for mode, run in runs.items():
             want = {k: v * REMAT_STEPS for k, v in per_step.items()}
-            if run['launches'] != want:
+            if heatmaps(run['launches']) != want or \
+                    run['launches']['instance_norm']:
                 raise AssertionError('%s remat %s: %d steps launched %s'
                                      % (name, mode, REMAT_STEPS,
                                         run['launches']))
@@ -3322,7 +3537,8 @@ def export_phase(hk, card, live, ref):
                                      'foreign_signature', 'session_refused')})
     launches = rec['launches']
     if rec['dispatches'] != CHUNKS + 1 or any(
-            launches[k] != rec['dispatches'] for k in launches):
+            launches[k] != rec['dispatches'] for k in HEATMAP_KERNELS) or \
+            launches['instance_norm']:
         raise AssertionError('artifact serving: %d dispatches, launches %s'
                              % (rec['dispatches'], launches))
     live_results, live_states = live['runs']['default']
@@ -3417,9 +3633,10 @@ def mesh_serve_phase(hk, base):
             engine.stop()
         want = {k: replicas * dispatches
                 for k in ('render_heatmaps', 'soft_argmax')}
-        if dispatches != CHUNKS + 1 or launches != want:
+        if dispatches != CHUNKS + 1 or heatmaps(launches) != want:
             raise AssertionError('%s: %d dispatches, launches %s, want %s'
                                  % (name, dispatches, launches, want))
+        check_norms(launches, spec_, replicas * dispatches, name)
         out_err = {}
         for key in sorted(base_results, key=str):
             check_outputs(results[key], T, '%s request %s' % (name, key))
@@ -3494,9 +3711,11 @@ def mesh_eval_phase(hk, card):
     peak = torch.cuda.max_memory_allocated(card)
     n_batches = len(two)
     want = {k: 2 * n_batches for k in ('render_heatmaps', 'soft_argmax')}
-    if n_batches != -(-CODALAB_CLIPS // CODALAB_BATCH) or launches != want:
+    if n_batches != -(-CODALAB_CLIPS // CODALAB_BATCH) or \
+            heatmaps(launches) != want:
         raise AssertionError('mesh eval: %d batches, launches %s, want %s'
                              % (n_batches, launches, want))
+    check_norms(launches, spec_, 2 * n_batches, 'mesh eval')
     errs = {}
     for b, (got, ref) in enumerate(zip(two, one)):
         check_finite(got, ('PoG_px_initial', 'PoG_px_final',
@@ -3581,14 +3800,14 @@ def dp_child(args):
     batch = run.get('batch', TRAIN_B)
     config, parsed = harness.script_init_common(dp_argv(
         int(steps), run.get('config', CONFIG), batch, run.get('extra', ())))
-    hk.reset_launch_counts()
+    reset_launch_counts(hk)
     try:
         train_cli.run(config, parsed.device,
                       [spec('synthetic', 11, int(steps) * batch)],
                       [spec('synthetic_val', 12, VAL_CLIPS)],
                       output_dir_base=out_base, backend=backend or None)
     finally:
-        record['launches'] = dict(hk.LAUNCHES)
+        record['launches'] = launch_counts(hk)
         record['peak'] = torch.cuda.max_memory_allocated()
         with open(record_path, 'w') as f:
             json.dump(record, f)
@@ -4086,12 +4305,12 @@ def adversarial_serve(hk):
         engine.infer(clips[0], timeout=600)  # warm-up
         torch.cuda.synchronize()
         batches = engine.get_stats()['batches']
-        hk.reset_launch_counts()
+        reset_launch_counts(hk)
         t0 = time.perf_counter()
         futures = [engine.submit(c) for c in clips]
         results = [f.result(timeout=600) for f in futures]
         wall = time.perf_counter() - t0
-        launches = dict(hk.LAUNCHES)
+        launches = launch_counts(hk)
         dispatches = engine.get_stats()['batches'] - batches
     finally:
         engine.stop()
@@ -4101,9 +4320,10 @@ def adversarial_serve(hk):
         "'cuda'): %d dispatches, %.1f ms, kernel launches %s, outputs "
         'finite' % (MAX_BATCH, T, dispatches, 1e3 * wall, launches))
     if dispatches == 0 or any(launches[name] != dispatches
-                              for name in launches):
+                              for name in HEATMAP_KERNELS):
         raise AssertionError('adversarial serving: launches %s over %d '
                              'dispatches' % (launches, dispatches))
+    check_norms(launches, spec, dispatches, 'adversarial serving')
     return launches
 
 
@@ -4141,7 +4361,7 @@ def slice_k_phase(hk, card, train, eye_state):
     wanted = {'render_heatmaps': 3 * steps + 2 * eval_batches,
               'soft_argmax': steps + eval_batches}
     if sorted(losses) != list(range(SAVE_EVERY, TRAIN_STEPS)) or \
-            launches != wanted:
+            heatmaps(launches) != wanted or launches['instance_norm']:
         raise AssertionError('resume from optimizer_0.npz: steps %s, '
                              'launches %s (want %s)' % (sorted(losses),
                                                         launches, wanted))
@@ -4324,7 +4544,7 @@ def bench_phase(hk):
             raise AssertionError('bench gate %s against its own record: '
                                  'exit %d' % (what, rc))
         for name in GATE_COUNTED:
-            if not all(counts[name].values()):
+            if not all(counts[name].values()):  # bf16: the norms too
                 raise AssertionError('bench gate %s %s: a kernel was not '
                                      'launched: %s' % (what, name,
                                                        counts[name]))
@@ -4347,7 +4567,7 @@ def bench_phase(hk):
     if {'sharded_scan_2_ms', 'sharded_scan_4_ms'} - set(line):
         raise AssertionError('bench temporal: no sharded time: %s' % line)
     for path, counts in launches.items():
-        if not all(counts.values()):
+        if not all(counts.values()):  # bf16 paths: the norms too
             raise AssertionError('bench %s: a kernel was not launched: %s'
                                  % (path, counts))
     log('bench launches: %s' % json.dumps(launches))
@@ -4391,16 +4611,19 @@ def main():
     sys.path.insert(0, ROOT)
     from eve_tpu_torch.kernels import build
     from eve_tpu_torch.kernels import heatmap_kernels as hk
+    from eve_tpu_torch.kernels import norm_kernels as nk
 
-    path, seconds, compiler_out = build.compile_library(
-        'heatmap_kernels', verbose=True)
-    log('build: %s in %.1f s' % (os.path.relpath(path, ROOT), seconds))
-    for line in compiler_out.splitlines():
-        if 'registers' in line or 'spill' in line:
-            log('  ptxas:', line.strip())
+    for name in ('heatmap_kernels', 'norm_kernels'):
+        path, seconds, compiler_out = build.compile_library(name,
+                                                            verbose=True)
+        log('build: %s in %.1f s' % (os.path.relpath(path, ROOT), seconds))
+        for line in compiler_out.splitlines():
+            if 'registers' in line or 'spill' in line or 'Compiling' in line:
+                log('  ptxas:', line.strip())
 
     card0 = torch.device('cuda', 0)
     errs = timed('kernels', kernel_phase, hk)
+    norms = timed('norm kernel', norm_kernel_phase, nk, hk)
     timings = kernel_timings(hk, SESSIONS * T)
     timings_eval = kernel_timings(hk, CODALAB_N)
     launches, serve_profile = timed('serve', serve_phase, hk)
@@ -4519,9 +4742,32 @@ def main():
     kernels[0]['n%d_s3' % CODALAB_N] = timings_eval['render_heatmaps_s3']
     kernels[0]['n%d_s3' % GRID_RANK_N] = timings_rank['render_heatmaps_s3']
     kernels[0]['n%d_s3' % BENCH_N] = timings_bench['render_heatmaps_s3']
+    # The norm kernel's launches on each counted path: one a norm of a
+    # bf16 forward (each phase held its count to that), none at float32.
+    norm_paths = {'serve_launches': launches,
+                  'train_launches': train['launches'],
+                  'eval_launches': evals['launches']}
+    norm_paths.update(('bf16_%s_launches' % k, v) for k, v in bf16.items()
+                      if k != 'figures')
+    norm_paths.update(new_paths)
+    norm_launches = {k: v['instance_norm'] for k, v in norm_paths.items()
+                     if 'instance_norm' in v}
+    unlaunched = [k for k, v in norm_launches.items() if v == 0 and (
+        'bf16' in k or k.startswith('bench_'))]
+    if unlaunched:
+        raise AssertionError('bf16 paths without a norm kernel launch: %s'
+                             % unlaunched)
     log('chip_smoke: every phase passed in %.1f s'
         % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': kernels}))
+    from eve_tpu_torch.models import eve as eve_lib
+    log(json.dumps({'norm_kernel': {
+        'name': 'instance_norm', 'route': 'cuda',
+        'source': 'eve_tpu_torch/csrc/norm_kernels.cu', 'replaces': None,
+        'launches_per_bf16_forward': norms_a_forward(
+            eve_lib.EveSpec.from_config(
+                eval_config(tpu_compute_dtype='bfloat16'))),
+        'launches': norm_launches, 'calls': norms}}))
     log('card:', card_line())
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

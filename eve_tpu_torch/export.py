@@ -3,8 +3,8 @@
 The counterpart of ``eve_tpu/export.py``. The artifact bakes the weights
 in, so serving needs only this one file: no model code, no checkpoint
 directory and no tracing at serving time. The serving process loads it
-(``load_exported``) and calls it; loading imports the heatmap kernels'
-custom ops, which the program calls, and nothing of
+(``load_exported``) and calls it; loading imports the heatmap and norm
+kernels' custom ops, which the program calls, and nothing of
 ``eve_tpu_torch.models``.
 
 Artifact layout: a 16-byte header (magic, version, flags; flag bit 0 means
@@ -204,6 +204,7 @@ def load_exported(data, device='cuda'):
     """
     # Registers the eve_tpu_torch:: ops the program calls.
     from eve_tpu_torch.kernels import heatmap_kernels  # noqa: F401
+    from eve_tpu_torch.kernels import norm_kernels  # noqa: F401
 
     if not isinstance(data, bytes):
         with open(data, 'rb') as f:

@@ -1,0 +1,348 @@
+"""Instance norm with its activation: the CUDA kernel, its plain version, the
+wrapper.
+
+eve_tpu has no kernel here: its ``instance_norm``
+(``eve_tpu/models/layers.py:29``) is jnp, and XLA fuses it with the ReLU or
+LeakyReLU after it into one pass over the map. Run eagerly, the port's bf16
+form is about 16 launches a norm, one more for the activation, and some 34
+bytes of device memory an element; ``eve_tpu_torch/csrc/norm_kernels.cu``
+does it in one launch that reads and writes each plane once (4 bytes an
+element), and says how.
+
+Beside the kernel, in this module:
+
+- the plain PyTorch version (``instance_norm_plain``): the bf16 form of
+  ``models.layers.InstanceNorm`` (one-pass float32 statistics, the scale and
+  shift rounded to the input's type, two roundings a value), then the
+  activation; the CPU runs it, and the kernel is held against it on the
+  card;
+- a ``torch.library`` custom op (``eve_tpu_torch::instance_norm``): its CPU
+  implementation is the plain version, its CUDA implementation launches the
+  kernel or raises (there is no fallback), its fake implementation gives
+  the output's shape, so that ``torch.export`` traces the op as one node,
+  and its backward (``plain_backward``) runs the operations autograd runs
+  through the plain version, from the saved input and output, without
+  recording a graph: autograd's gradients bitwise, at a fraction of its
+  host time a norm;
+- the wrapper (``instance_norm``), which calls the op, or, where nothing
+  records the call (no autograd graph, no tracing, no dispatch mode), the
+  op's CUDA implementation straight away: the op's dispatch doubles the
+  host time of a call, and the host sets the pace of a bf16 forward;
+- a launch count (``LAUNCHES``), bumped once per kernel launch and nowhere
+  else.
+
+The float32 form (two-pass statistics) is another function and stays in
+``models.layers``.
+"""
+
+import ctypes
+import functools
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+from eve_tpu_torch.kernels import build
+
+# Activations the kernel folds in, by name, and their codes in csrc.
+ACTS = {'none': 0, 'relu': 1, 'leaky': 2}
+# bf16 values in a 16-byte vector; vectors a thread holds (csrc).
+VEC = 8
+MAX_VECS = 4
+# Threads of a plane at most (a CTA of the block kernel).
+MAX_BLOCK_THREADS = 1024
+
+_SIGNATURES = {
+    'eve_instance_norm': (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p),
+}
+
+LAUNCHES = {'instance_norm': 0}
+_launches_lock = threading.Lock()
+
+
+def reset_launch_counts():
+    with _launches_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count_launch(name):
+    with _launches_lock:
+        LAUNCHES[name] += 1
+
+
+def _library():
+    return build.load_library('norm_kernels', _SIGNATURES)
+
+
+def norm_launch(hw, aligned=True):
+    """``(lanes, vecs)`` of a launch over planes of ``hw`` values: the
+    threads that share a plane and the 16-byte vectors each holds.
+
+    At most ``MAX_VECS`` vectors a thread: a plane of up to 128 vectors
+    takes the smallest power-of-two group of warp lanes that holds it, a
+    larger one the fewest whole warps that do, up to ``MAX_BLOCK_THREADS``.
+    ``vecs`` 0 is the scalar path (a warp a plane): ``hw`` not a multiple of
+    ``VEC``, an unaligned tensor, or a plane too large to hold.
+    """
+    if hw % VEC or not aligned:
+        return 32, 0
+    nvec = hw // VEC
+    per_lane = -(-nvec // MAX_VECS)
+    if per_lane <= 32:
+        lanes = 1 << (per_lane - 1).bit_length()
+    else:
+        lanes = 32 * -(-per_lane // 32)
+        if lanes > MAX_BLOCK_THREADS:
+            return 32, 0
+    return lanes, -(-nvec // lanes)
+
+
+@functools.lru_cache(maxsize=None)
+def mean_factor(planes, hw):
+    """The factor PyTorch's CUDA mean over ``hw`` of ``planes * hw`` values
+    multiplies a sum by: float32(planes) / float32(planes * hw)."""
+    return float(np.float32(planes) / np.float32(planes * hw))
+
+
+def _check_launch(err, name):
+    if err != 0:
+        raise RuntimeError('%s kernel launch failed: cudaError %d'
+                           % (name, err))
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+def activate(y, act, slope):
+    """``act`` ('none', 'relu' or 'leaky' with ``slope``) applied to ``y``."""
+    if act == 'relu':
+        return F.relu(y)
+    if act == 'leaky':
+        return F.leaky_relu(y, slope)
+    return y
+
+
+def plain_scale_shift(x, weight, bias, eps):
+    """Each plane's ``scale`` and ``shift`` in ``x``'s type, (..., C, 1, 1):
+    float32 statistics (``E[x^2] - E[x]^2``, clamped at 0) with the affine
+    weight and bias folded in, then cast."""
+    xf = x.float()
+    mean = xf.mean(dim=(-2, -1), keepdim=True)
+    ex2 = (xf * xf).mean(dim=(-2, -1), keepdim=True)
+    scale = torch.rsqrt(torch.clamp(ex2 - mean * mean, min=0.0) + eps)
+    if weight is not None:
+        scale = scale * weight[:, None, None]
+    shift = -mean * scale
+    if bias is not None:
+        shift = shift + bias[:, None, None]
+    return scale.to(x.dtype), shift.to(x.dtype)
+
+
+def instance_norm_plain(x, weight, bias, eps, act, slope):
+    """(N, C, H, W) -> the same: the one-pass instance norm of a bf16 input,
+    then ``act``.
+
+    ``x * scale + shift`` in ``x``'s type, with ``plain_scale_shift``'s
+    scale and shift. A 1x1 map gives 0, then the bias.
+    """
+    if x.shape[-2] * x.shape[-1] == 1:
+        y = torch.zeros_like(x)
+        if bias is not None:
+            y = y + bias.to(x.dtype)[:, None, None]
+        return activate(y, act, slope)
+    scale, shift = plain_scale_shift(x, weight, bias, eps)
+    return activate(x * scale + shift, act, slope)
+
+
+# ---------------------------------------------------------------------------
+# The op
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op('eve_tpu_torch::instance_norm', mutates_args=(),
+                         device_types='cpu')
+def _norm_op(x: torch.Tensor, weight: Optional[torch.Tensor],
+             bias: Optional[torch.Tensor], eps: float, act: str,
+             slope: float) -> torch.Tensor:
+    """The CPU implementation: the plain version."""
+    return instance_norm_plain(x, weight, bias, eps, act, slope)
+
+
+def _parameter(t, c, x, what):
+    if t is None:
+        return None
+    if t.device != x.device or tuple(t.shape) != (c,):
+        raise ValueError('instance_norm takes a (%d,) %s on %s, got %s on %s'
+                         % (c, what, x.device, tuple(t.shape), t.device))
+    return t.float().contiguous()
+
+
+@_norm_op.register_kernel('cuda')
+def _norm_cuda(x, weight, bias, eps, act, slope):
+    """The CUDA implementation: one launch of the kernel."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError('the instance_norm kernel takes bfloat16, got %s'
+                         % x.dtype)
+    if x.ndim < 3:
+        raise ValueError('instance_norm takes (..., C, H, W), got %s'
+                         % (tuple(x.shape),))
+    if act not in ACTS:
+        raise ValueError('instance_norm act %r is none of %s'
+                         % (act, sorted(ACTS)))
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    c = x.shape[-3]
+    hw = x.shape[-2] * x.shape[-1]
+    planes = x.numel() // hw
+    if planes > 2 ** 31 - 1 or hw > 2 ** 31 - 1:
+        raise ValueError('instance_norm takes under 2^31 planes of under '
+                         '2^31 values, got %d of %d' % (planes, hw))
+    weight = _parameter(weight, c, x, 'weight')
+    bias = _parameter(bias, c, x, 'bias')
+    lanes, vecs = norm_launch(hw, x.data_ptr() % 16 == 0)
+    err = _library().eve_instance_norm(
+        x.data_ptr(), out.data_ptr(),
+        None if weight is None else weight.data_ptr(),
+        None if bias is None else bias.data_ptr(), planes, c, hw, lanes,
+        vecs, mean_factor(planes, hw), float(eps), ACTS[act], float(slope),
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(err, 'instance_norm')
+    _count_launch('instance_norm')
+    return out
+
+
+@_norm_op.register_fake
+def _norm_fake(x, weight, bias, eps, act, slope):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _norm_setup_context(ctx, inputs, output):
+    x, weight, bias, eps, act, slope = inputs
+    ctx.save_for_backward(x, weight, bias, output)
+    ctx.args = (eps, act, slope)
+
+
+def _sum_to(g, shape):
+    """``g`` summed to ``shape`` as autograd sums a broadcast gradient
+    (``at::sum_to``)."""
+    lead = g.ndim - len(shape)
+    dims = list(range(lead)) + [i for i in range(lead, g.ndim)
+                                if shape[i - lead] == 1 and g.shape[i] != 1]
+    return g.sum(dims, keepdim=True).view(shape) if dims else g
+
+
+def plain_backward(x, weight, bias, out, eps, act, slope, grad):
+    """``(grad x, grad weight, grad bias)`` of ``instance_norm_plain`` at
+    ``x`` (its output ``out``, a map of more than one value), to ``grad``:
+    the operations autograd runs through the plain version, in its order,
+    so the gradients are autograd's bitwise, without recording a graph.
+    The gradient to the weight or the bias is None where that is."""
+    hw = x.shape[-2] * x.shape[-1]
+    channel = (x.shape[-3], 1, 1)
+    # The plain version's statistics.
+    xf = x.float()
+    mean = xf.mean(dim=(-2, -1), keepdim=True)
+    ex2 = (xf * xf).mean(dim=(-2, -1), keepdim=True)
+    var = ex2 - mean * mean
+    r = torch.rsqrt(torch.clamp(var, min=0.0) + eps)
+    w = None if weight is None else weight[:, None, None]
+    scale = r if w is None else r * w
+    neg_mean = -mean
+    # The apply and the activation.
+    if act == 'relu':
+        grad = torch.ops.aten.threshold_backward(grad, out, 0)
+    elif act == 'leaky':
+        # out > 0 exactly where its input is.
+        grad = torch.ops.aten.leaky_relu_backward(grad, out, slope, False)
+    stat = tuple(mean.shape)
+    g_shift = _sum_to(grad, stat).float()
+    g_x = grad * scale.to(x.dtype)
+    g_scale = _sum_to(grad * x, stat).float()
+    g_bias = None if bias is None else _sum_to(g_shift, channel).view(-1)
+    g_neg_mean = g_shift * scale
+    g_scale = g_scale + g_shift * neg_mean
+    g_mean = g_neg_mean.neg()
+    g_weight = None
+    if w is not None:
+        g_weight = _sum_to(g_scale * r, channel).view(-1)
+        g_scale = g_scale * w
+    # The statistics.
+    g_var = -0.5 * g_scale * r.pow(3)
+    zero = torch.zeros((), dtype=g_var.dtype, device=g_var.device)
+    g_var = torch.where(var >= 0.0, g_var, zero)
+    g_mm = g_var.neg()
+    g_mean = g_mean + g_mm * mean
+    g_mean = g_mean + g_mm * mean
+    g_sq = g_var.expand(x.shape) / hw
+    g_xf = g_sq * xf + g_sq * xf
+    g_xf = g_xf + g_mean.expand(x.shape) / hw
+    return g_x + g_xf.to(x.dtype), g_weight, g_bias
+
+
+def _norm_backward(ctx, grad):
+    """By ``plain_backward`` (there is no backward kernel), to the input and
+    to the weight and bias where given; a 1x1 map through the plain
+    version, recomputed from the saved input."""
+    x, weight, bias, out = ctx.saved_tensors
+    if x.shape[-2] * x.shape[-1] > 1:
+        return plain_backward(x, weight, bias, out, *ctx.args, grad) + (
+            None, None, None)
+    leaves = [None if t is None else t.detach().requires_grad_(True)
+              for t in (x, weight, bias)]
+    given = [t for t in leaves if t is not None]
+    with torch.enable_grad():
+        y = instance_norm_plain(*leaves, *ctx.args)
+        if y.requires_grad:
+            grads = iter(torch.autograd.grad(
+                y, given, grad, allow_unused=True, materialize_grads=True))
+        else:  # a 1x1 map without a bias: a constant output
+            grads = iter([torch.zeros_like(t) for t in given])
+    return tuple(None if t is None else next(grads) for t in leaves) + (
+        None, None, None)
+
+
+_norm_op.register_autograd(_norm_backward, setup_context=_norm_setup_context)
+
+
+def eager(*tensors):
+    """Whether a call on ``tensors`` (None allowed) runs eagerly on real
+    tensors with nothing to record: no ``torch.compile`` or
+    ``torch.export`` tracing, no dispatch mode, plain tensors or
+    parameters, and no autograd graph (grad off, or no tensor requiring
+    it)."""
+    if torch.compiler.is_compiling() or \
+            _get_current_dispatch_mode() is not None:
+        return False
+    grad = torch.is_grad_enabled()
+    return all(t is None or (type(t) in (torch.Tensor, torch.nn.Parameter)
+                             and not (grad and t.requires_grad))
+               for t in tensors)
+
+
+def instance_norm(x, weight=None, bias=None, eps=1e-5, act='none',
+                  slope=0.0):
+    """(N, C, H, W) -> the same: the ``eve_tpu_torch::instance_norm`` op,
+    one kernel launch on a bf16 CUDA tensor, the plain version on a CPU
+    tensor. Where ``eager`` holds, a CUDA tensor goes to the op's CUDA
+    implementation without the op's dispatch: the same launch.
+
+    ``weight`` and ``bias``: (C,) tensors on the same device, or None;
+    ``act``: 'none', 'relu' or 'leaky' (``slope``: its negative slope in
+    ``x``'s type).
+    """
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError('instance_norm takes a CPU or CUDA tensor, got %s'
+                         % x.device)
+    if x.is_cuda and eager(x, weight, bias):
+        return _norm_cuda(x, weight, bias, float(eps), act, float(slope))
+    return _norm_op(x, weight, bias, float(eps), act, float(slope))

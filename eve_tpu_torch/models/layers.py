@@ -19,6 +19,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from eve_tpu_torch.kernels import norm_kernels
+
+# LeakyReLU's negative slope in the networks.
+LEAKY_SLOPE = 0.01
+
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` (the same state_dict names) that computes in its
@@ -32,29 +37,66 @@ class Conv2d(nn.Conv2d):
     the outputs (measured on the CPU, where the separate add matches
     eve_tpu's outputs bitwise). At float32 the two orders differ in the
     last bit only, and the fused form saves a pass over the output.
+
+    Without autograd the cast weight and bias are kept from call to call
+    (``_casts``), so that a forward launches no casts.
     """
 
     def forward(self, x):
         if x.dtype == self.weight.dtype:
             return super().forward(x)
-        y = self._conv_forward(x, self.weight.to(x.dtype), None)
-        if self.bias is None:
-            return y
-        return y + self.bias.to(x.dtype)[:, None, None]
+        weight, bias = self._casts(x.dtype)
+        y = self._conv_forward(x, weight, None)
+        return y if bias is None else y + bias
+
+    def _casts(self, dtype):
+        """The weight and the bias (as (C, 1, 1), or None) in ``dtype``.
+
+        Where ``norm_kernels.eager`` holds and the parameters track their
+        versions (none is an inference tensor), the casts made at one call
+        serve the next while each parameter holds the same storage at the
+        same version: an in-place change (an optimizer's step,
+        ``load_state_dict``) bumps the version, and the cache holds the
+        source parameters' storage, so no other tensor can take its
+        address. Otherwise, as under autograd, they are cast at each call,
+        so that the casts are in the graph.
+        """
+        w, b = self.weight, self.bias
+        params = (w,) if b is None else (w, b)
+        if torch.is_grad_enabled() or not norm_kernels.eager(*params) or \
+                any(p.is_inference() for p in params):
+            return w.to(dtype), None if b is None else \
+                b.to(dtype)[:, None, None]
+        key = (dtype,) + tuple((p.data_ptr(), p._version) for p in params)
+        cached = self.__dict__.get('_cast_cache')
+        if cached is None or cached[0] != key:
+            # Outside inference mode, so that the casts also serve a
+            # forward under torch.no_grad.
+            with torch.inference_mode(False):
+                casts = (w.detach().to(dtype), None if b is None else
+                         b.detach().to(dtype)[:, None, None])
+            cached = (key, [p.detach() for p in params], casts)
+            self.__dict__['_cast_cache'] = cached
+        return cached[2]
 
 
 class InstanceNorm(nn.Module):
-    """InstanceNorm2d: biased variance, eps 1e-5, no running statistics.
+    """InstanceNorm2d: biased variance, eps 1e-5, no running statistics,
+    then the activation ``act`` (None, 'relu' or 'leaky': ``LeakyReLU``
+    with slope ``LEAKY_SLOPE``) that follows the norm in the network.
 
     ``affine`` adds ``weight``/``bias`` (the reference's state_dict names).
     The statistics are float32 for any input type (eve_tpu's
     ``instance_norm``):
 
-    - float32 input: two-pass statistics, ``(x - mean) * rsqrt(var + eps)``.
-    - bfloat16 input: one-pass float32 statistics (``E[x^2] - E[x]^2``,
-      clamped at 0); the affine weight and bias fold into a float32
-      ``scale`` and ``shift``, which are cast to bfloat16 and applied as
-      ``x * scale + shift`` in bfloat16.
+    - float32 input: two-pass statistics, ``(x - mean) * rsqrt(var + eps)``,
+      then the activation, in plain PyTorch on either device.
+    - bfloat16 input: ``kernels.norm_kernels.instance_norm``, the one-pass
+      float32 statistics (``E[x^2] - E[x]^2``, clamped at 0), the affine
+      weight and bias folded into a float32 ``scale`` and ``shift``, which
+      are cast to bfloat16 and applied as ``x * scale + shift`` in
+      bfloat16, and the activation: one kernel launch on the card, its
+      plain version on the CPU.
 
     A 1x1 map normalises to 0 (then ``bias``), as the reference model's
     norm gives. The float32 form gets there by itself; in the bfloat16 form
@@ -65,10 +107,14 @@ class InstanceNorm(nn.Module):
     1x1 map.
     """
 
-    def __init__(self, num_features, affine=False, eps=1e-5):
+    def __init__(self, num_features, affine=False, eps=1e-5, act=None):
         super().__init__()
+        if act not in (None, 'relu', 'leaky'):
+            raise ValueError("InstanceNorm act %r is not None, 'relu' or "
+                             "'leaky'" % (act,))
         self.num_features = num_features
         self.eps = eps
+        self.act = act
         if affine:
             self.weight = nn.Parameter(torch.ones(num_features))
             self.bias = nn.Parameter(torch.zeros(num_features))
@@ -77,32 +123,20 @@ class InstanceNorm(nn.Module):
             self.register_parameter('bias', None)
 
     def forward(self, x):
-        if x.dtype == torch.float32:
-            # Two-pass statistics, as eve_tpu; unlike F.instance_norm this
-            # also takes 1x1 maps (which it maps to 0).
-            mean = x.mean(dim=(-2, -1), keepdim=True)
-            xc = x - mean
-            var = (xc * xc).mean(dim=(-2, -1), keepdim=True)
-            y = xc * torch.rsqrt(var + self.eps)
-            if self.weight is not None:
-                y = y * self.weight[:, None, None] + self.bias[:, None, None]
-            return y
-        if x.shape[-2] * x.shape[-1] == 1:
-            y = torch.zeros_like(x)
-            if self.bias is not None:
-                y = y + self.bias.to(x.dtype)[:, None, None]
-            return y
-        xf = x.float()
-        mean = xf.mean(dim=(-2, -1), keepdim=True)
-        ex2 = (xf * xf).mean(dim=(-2, -1), keepdim=True)
-        scale = torch.rsqrt(torch.clamp(ex2 - mean * mean, min=0.0) +
-                            self.eps)
+        slope = _rounded(LEAKY_SLOPE, x.dtype)
+        if x.dtype != torch.float32:
+            return norm_kernels.instance_norm(
+                x, self.weight, self.bias, self.eps, self.act or 'none',
+                slope)
+        # Two-pass statistics, as eve_tpu; unlike F.instance_norm this
+        # also takes 1x1 maps (which it maps to 0).
+        mean = x.mean(dim=(-2, -1), keepdim=True)
+        xc = x - mean
+        var = (xc * xc).mean(dim=(-2, -1), keepdim=True)
+        y = xc * torch.rsqrt(var + self.eps)
         if self.weight is not None:
-            scale = scale * self.weight[:, None, None]
-        shift = -mean * scale
-        if self.bias is not None:
-            shift = shift + self.bias[:, None, None]
-        return x * scale.to(x.dtype) + shift.to(x.dtype)
+            y = y * self.weight[:, None, None] + self.bias[:, None, None]
+        return norm_kernels.activate(y, self.act, slope)
 
 
 @functools.lru_cache(maxsize=None)

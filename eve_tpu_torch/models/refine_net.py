@@ -35,25 +35,27 @@ LEVEL_SHAPES = ((72, 128), (36, 64), (18, 32), (9, 16), (5, 8))
 NUM_ENC_BLOCKS = (1, 2, 2, 2, 2)
 
 
-def _act(kind):
-    return nn.ReLU() if kind == 'relu' else LeakyReLU(0.01)
-
-
 class PreactBlock(nn.Module):
-    """IN-act-conv3 / IN-act-conv3, plus a skip (IN-act-conv1 if widths differ)."""
+    """IN-act-conv3 / IN-act-conv3, plus a skip (IN-act-conv1 if widths differ).
+
+    Each norm applies the block's activation ``act`` ('relu' or 'leaky')
+    itself; the activation's slot of each ``nn.Sequential`` holds an
+    ``nn.Identity`` so that the state_dict names stay the reference's
+    (``layers.0/2/3/5``, ``skip_layer.0/2``).
+    """
 
     def __init__(self, in_features, out_features, act='relu'):
         super().__init__()
         self.layers = nn.Sequential(
-            InstanceNorm(in_features, affine=True), _act(act),
+            InstanceNorm(in_features, affine=True, act=act), nn.Identity(),
             Conv2d(in_features, out_features, 3, 1, 1),
-            InstanceNorm(out_features, affine=True), _act(act),
+            InstanceNorm(out_features, affine=True, act=act), nn.Identity(),
             Conv2d(out_features, out_features, 3, 1, 1))
         self.skip_layer = None
         if in_features != out_features:
             self.skip_layer = nn.Sequential(
-                InstanceNorm(in_features, affine=True), _act(act),
-                Conv2d(in_features, out_features, 1, 1, 0))
+                InstanceNorm(in_features, affine=True, act=act),
+                nn.Identity(), Conv2d(in_features, out_features, 1, 1, 0))
 
     def forward(self, x):
         skip = x if self.skip_layer is None else self.skip_layer(x)
@@ -99,8 +101,9 @@ class RefineNet(nn.Module):
         self.clstm_carry_only = clstm_carry_only
         in_c = 4 if load_screen_content else 1
         self.initial = nn.Sequential(
-            Conv2d(in_c, 16, 3, 1, 1), InstanceNorm(16, affine=True),
-            nn.ReLU(), Conv2d(16, 16, 3, 1, 1))
+            Conv2d(in_c, 16, 3, 1, 1),
+            InstanceNorm(16, affine=True, act='relu'), nn.Identity(),
+            Conv2d(16, 16, 3, 1, 1))
         cell_cls = CONV_CELLS[rnn_type]
         inner = _Bottleneck(cell_cls, num_features,
                             rnn_num_cells if use_rnn else 0)

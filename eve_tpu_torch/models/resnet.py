@@ -37,7 +37,7 @@ class BasicBlock(nn.Module):
     def __init__(self, in_features, features, stride=1):
         super().__init__()
         self.conv1 = Conv2d(in_features, features, 3, stride, 1, bias=False)
-        self.in1 = InstanceNorm(features)
+        self.in1 = InstanceNorm(features, act='relu')
         self.conv2 = Conv2d(features, features, 3, 1, 1, bias=False)
         self.in2 = InstanceNorm(features)
         self.downsample = None
@@ -48,7 +48,7 @@ class BasicBlock(nn.Module):
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
-        out = F.relu(self.in1(self.conv1(x)))
+        out = self.in1(self.conv1(x))
         out = self.in2(self.conv2(out))
         return F.relu(out + identity)
 
@@ -72,7 +72,7 @@ class ResNet18IN(nn.Module):
             raise ValueError(
                 "Unknown ResNet18IN stem %r (expected 'reference', "
                 "'patchify' or 'patchify8')" % (stem,))
-        self.in1 = InstanceNorm(64)
+        self.in1 = InstanceNorm(64, act='relu')
         in_features = 64
         for stage, (features, stride) in enumerate(
                 ((64, 1), (128, 2), (256, 2), (512, 2))):
@@ -93,10 +93,10 @@ class ResNet18IN(nn.Module):
                            min_px, self.stem)
         x = x.to(self.compute_dtype)
         if self.stem == 'reference':
-            x = F.relu(self.in1(self.conv1(x)))
+            x = self.in1(self.conv1(x))
             x = F.max_pool2d(x, 3, 2, 1)
         else:
-            x = F.relu(self.in1(self.stem_conv(x)))
+            x = self.in1(self.stem_conv(x))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         pooled = x.mean(dim=(-2, -1), dtype=torch.float32).to(x.dtype)
         return self.fc(pooled.float())

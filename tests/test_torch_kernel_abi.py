@@ -3,10 +3,11 @@
 ctypes passes each argument as the type named in ``argtypes``; a pointer
 declared ``c_int`` is cut to 32 bits and an ``int`` declared ``c_float``
 arrives as garbage, and either would show only on the card. This test
-parses the ``extern "C"`` block of ``csrc/heatmap_kernels.cu`` on the CPU
-and holds ``_SIGNATURES`` in ``kernels/heatmap_kernels.py`` to it: the
-same functions, argument counts and kinds (pointer <-> ``c_void_p``,
-``int`` <-> ``c_int``, ``float`` <-> ``c_float``).
+parses the ``extern "C"`` block of each source under ``csrc/``
+(``heatmap_kernels.cu``, ``norm_kernels.cu``) on the CPU and holds the
+``_SIGNATURES`` of its module under ``kernels/`` to it: the same
+functions, argument counts and kinds (pointer <-> ``c_void_p``, ``int``
+<-> ``c_int``, ``float`` <-> ``c_float``).
 """
 
 import ctypes
@@ -17,8 +18,15 @@ import pytest
 
 from eve_tpu_torch.kernels import build
 from eve_tpu_torch.kernels import heatmap_kernels as tkern
+from eve_tpu_torch.kernels import norm_kernels
 
 SOURCE = os.path.join(build.CSRC_DIR, 'heatmap_kernels.cu')
+# Each kernel module and its source.
+MODULES = ((tkern, SOURCE),
+           (norm_kernels, os.path.join(build.CSRC_DIR, 'norm_kernels.cu')))
+# Every entry point's module and source, by name.
+ENTRY_POINTS = {name: (module, source) for module, source in MODULES
+                for name in module._SIGNATURES}
 KINDS = {ctypes.c_void_p: 'pointer', ctypes.c_int: 'int',
          ctypes.c_float: 'float'}
 
@@ -73,12 +81,16 @@ def test_every_entry_point_has_a_signature():
     assert {'eve_render_heatmaps', 'eve_soft_argmax',
             'eve_empty_kernel'} <= set(entries)
     assert set(entries) == set(tkern._SIGNATURES)
+    for module, source in MODULES[1:]:
+        assert set(c_entry_points(source)) == set(module._SIGNATURES)
+    assert 'eve_instance_norm' in ENTRY_POINTS
 
 
-@pytest.mark.parametrize('name', sorted(tkern._SIGNATURES))
+@pytest.mark.parametrize('name', sorted(ENTRY_POINTS))
 def test_signature_matches_c_entry_point(name):
-    want = c_entry_points()[name]
-    got = [KINDS[t] for t in tkern._SIGNATURES[name]]
+    module, source = ENTRY_POINTS[name]
+    want = c_entry_points(source)[name]
+    got = [KINDS[t] for t in module._SIGNATURES[name]]
     assert got == want, '%s: ctypes %s, C %s' % (name, got, want)
 
 
