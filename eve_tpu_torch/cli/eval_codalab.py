@@ -84,10 +84,13 @@ def _eval_mesh(config, batch_size, device='cuda'):
 def collect(batches):
     """``{participant: {subfolder: {camera: {key: array}}}}`` from the
     ``(step, inputs, outputs)`` of ``infer.iterator``: each sequence's clips
-    concatenated along time, in the order they come."""
+    concatenated along time, in the order they come. The keys are those
+    of ``KEYS_TO_STORE`` that the model gives (Gaze360: no pupil sizes and
+    no ``PoG_px_final``)."""
     outputs_to_write = {}
     processed_so_far = set()
     for _, inputs, outputs in batches:
+        stored = [key for key in KEYS_TO_STORE if key in outputs]
         for i in range(outputs['PoG_px_initial'].shape[0]):
             sequence_key = (inputs['participant'][i], inputs['subfolder'][i],
                             inputs['camera'][i])
@@ -95,12 +98,12 @@ def collect(batches):
             sub_dict = outputs_to_write.setdefault(
                 participant, {}).setdefault(subfolder, {})
             if camera in sub_dict:
-                for key in KEYS_TO_STORE:
+                for key in stored:
                     sub_dict[camera][key] = np.concatenate(
                         [sub_dict[camera][key], outputs[key][i]], axis=0)
             else:
                 sub_dict[camera] = {key: outputs[key][i]
-                                    for key in KEYS_TO_STORE}
+                                    for key in stored}
             if sequence_key not in processed_so_far:
                 print('Handling %s/%s/%s' % sequence_key)
                 processed_so_far.add(sequence_key)

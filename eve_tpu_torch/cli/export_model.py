@@ -43,8 +43,10 @@ def main(argv=None):
     from eve_tpu_torch import infer
     from eve_tpu_torch.data.synthetic import make_synthetic_batch
     from eve_tpu_torch.export import export_inference
+    from eve_tpu_torch.models import zoo
 
     config, args = parse_config(argv)
+    zoo.refuse('export', config)
     if not config.export_path:
         raise ValueError('--export-path is required')
     if config.eyes_size[0] != config.eyes_size[1]:

@@ -46,9 +46,11 @@ def parse_config(argv=None, description='Serve EVE inference over HTTP.'):
 
 def model_setup(config):
     """``(spec, state_dict)`` from ``--resume-from``; refuses without one."""
+    from eve_tpu_torch.models import zoo
     from eve_tpu_torch.models.eve import EveSpec
     from eve_tpu_torch.utils import checkpoint, convert
 
+    zoo.refuse('serving', config)
     spec = EveSpec.from_config(config)
     if not config.resume_from:
         raise RuntimeError(

@@ -53,6 +53,9 @@ DEFERRED_KEYS = frozenset((
     'tpu_compile_cache_dir', 'tpu_use_pallas', 'use_native_framepack',
 ))
 
+# Keys the port reads that eve_tpu's config does not have.
+PORT_KEYS = frozenset(('gaze_net',))
+
 _REMAT_MODES = ('none', 'eye', 'refine', 'all')
 
 
@@ -215,6 +218,11 @@ class Config:
     # both are set and gspread is installed.
     gsheet_secrets_json_file = ''
     gsheet_workbook_key = ''
+
+    # The gaze network (models/zoo.py): 'eve' (EyeNet and RefineNet) or
+    # 'gaze360' (Gaze360 on face video, camera_frame_type 'face'; the
+    # evaluation path only). A key of the port's own (PORT_KEYS).
+    gaze_net = 'eve'
 
     # Eye gaze network
     eye_net_load_pretrained = False

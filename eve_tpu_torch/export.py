@@ -114,7 +114,9 @@ def export_inference(spec, state_dict, example_batch, streaming=False,
     Returns the artifact's bytes (write them to a file).
     """
     from eve_tpu_torch.models import eve as eve_lib
+    from eve_tpu_torch.models import zoo
 
+    zoo.refuse('export', spec)
     device = torch.device(device)
     model = eve_lib.build_model(spec, state_dict, device)
     batch = batch_to_tensors(example_batch, device)

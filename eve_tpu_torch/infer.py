@@ -21,8 +21,10 @@ import torch
 from eve_tpu_torch import tracing
 from eve_tpu_torch.cli import common
 from eve_tpu_torch.data.dataset import EVESequencesBase
-from eve_tpu_torch.data.loader import DataLoader, split_host_batch
+from eve_tpu_torch.data.loader import (DataLoader, DevicePrefetcher,
+                                       split_host_batch)
 from eve_tpu_torch.models import eve as eve_lib
+from eve_tpu_torch.models import gaze360, zoo
 from eve_tpu_torch.parallel import mesh as mesh_lib
 from eve_tpu_torch.utils import checkpoint, convert, load_model
 
@@ -76,7 +78,8 @@ def init_dataset(config):
 def model_setup(config, require_weights=False, device='cuda',
                 pretrained_dir=None):
     """An ``EVE`` in eval mode on ``device``, with weights from a run
-    directory or the released weights.
+    directory or the released weights; under ``gaze_net`` 'gaze360' a
+    ``Gaze360`` (``models.gaze360.model_setup``).
 
     With ``resume_from`` the newest checkpoint of that run directory (in
     eve_tpu's layout) loads; a submodule without a file keeps eve_tpu's
@@ -84,6 +87,9 @@ def model_setup(config, require_weights=False, device='cuda',
     from ``utils.load_model``; ``require_weights=True`` raises unless every
     enabled submodule found its file, instead of running random weights.
     """
+    if zoo.gaze_net(config) == 'gaze360':
+        return gaze360.model_setup(config, require_weights, device,
+                                   pretrained_dir)
     spec = eve_lib.EveSpec.from_config(config)
     model = eve_lib.init_model(spec, torch.Generator().manual_seed(0),
                                device)
@@ -139,9 +145,15 @@ def iterator(model, dataloader, create_images=True, streaming=False,
     ``batch_size`` must divide by the mesh; a ragged final batch is padded
     with copies of its last clip, run, and cut. Not with ``streaming``.
 
+    Without ``streaming``, a mesh or ``materialize_inputs`` (the
+    evaluation CLI's call) the copy-in is ``DevicePrefetcher``'s: each
+    batch is staged in pinned host memory and copied on a side stream by
+    the prefetcher's thread while the device runs the batches before it.
+
     While a torch profiler records, each batch's work up to its yield is
     an ``infer.batch`` span (``eve_tpu_torch.tracing``) with ``infer.h2d``
-    (the copy in) and ``infer.d2h`` (the outputs' copy back) children.
+    (the copy in; with the prefetcher, the wait for the next batch's
+    staged inputs) and ``infer.d2h`` (the outputs' copy back) children.
     """
     device = next(model.parameters()).device
     mesh = mesh_lib.as_mesh(mesh, device)
@@ -161,6 +173,12 @@ def iterator(model, dataloader, create_images=True, streaming=False,
                              '%d-device %r mesh axis'
                              % (full, mesh.size, mesh.axis_names[0]))
         replicas = mesh_lib.replicate(mesh, model)
+    if streaming and isinstance(model.spec, gaze360.GazeSpec):
+        raise ValueError('Gaze360 cannot stream: its output at frame t '
+                         'reads frames up to t+3 (a 3-frame look-ahead)')
+    if mesh is None and not streaming and not materialize_inputs:
+        yield from _prefetched(model, dataloader, device, create_images)
+        return
     states = None
     for current_step, batch in enumerate(dataloader):
         with tracing.span('infer.batch'):
@@ -195,6 +213,31 @@ def iterator(model, dataloader, create_images=True, streaming=False,
             if 'timestamps_ns' in host_extras:
                 outputs_np['timestamps'] = host_extras['timestamps_ns']
         yield current_step, inputs_np, outputs_np
+
+
+def _prefetched(model, dataloader, device, create_images):
+    """``iterator``'s evaluation path over ``DevicePrefetcher``. The next
+    batch is taken while the device runs this one, so the host's wait for
+    it overlaps the forward; that wait is this batch's ``infer.h2d``."""
+    staged = iter(DevicePrefetcher(dataloader, device))
+    ahead = next(staged, None)
+    current_step = 0
+    while ahead is not None:
+        with tracing.span('infer.batch'):
+            tensors, host_extras = ahead
+            with torch.inference_mode():
+                outputs = model(tensors, output_predictions=True,
+                                create_images=create_images)
+                with tracing.span('infer.h2d'):
+                    ahead = next(staged, None)
+                with tracing.span('infer.d2h'):
+                    outputs_np = {k: v.cpu().numpy()
+                                  for k, v in outputs.items()}
+            inputs_np = dict(host_extras)
+            if 'timestamps_ns' in host_extras:
+                outputs_np['timestamps'] = host_extras['timestamps_ns']
+        yield current_step, inputs_np, outputs_np
+        current_step += 1
 
 
 def _to(tensors, device):

@@ -1,5 +1,5 @@
-"""Shared layers, NCHW: convolution, instance norm, adaptive max-pool,
-bilinear resize, depth-to-space.
+"""Shared layers, NCHW: convolution, instance norm, batch norm (eval),
+adaptive max-pool, bilinear resize, depth-to-space.
 
 The counterpart of ``eve_tpu/models/layers.py``. eve_tpu emulates torch's
 own semantics (adaptive max-pool windows, bilinear resize with
@@ -137,6 +137,26 @@ class InstanceNorm(nn.Module):
         if self.weight is not None:
             y = y * self.weight[:, None, None] + self.bias[:, None, None]
         return norm_kernels.activate(y, self.act, slope)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm2d's state as torch names it (``weight``, ``bias``,
+    ``running_mean``, ``running_var``, ``num_batches_tracked``; eps 1e-5),
+    for loading. It has no forward: models fold it into the convolution
+    before it (``ResNet18BN.fold_norms``), which evaluates it exactly in
+    real arithmetic.
+    """
+
+    def __init__(self, num_features, eps=1e-5):
+        super().__init__()
+        self.num_features = num_features
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer('running_mean', torch.zeros(num_features))
+        self.register_buffer('running_var', torch.ones(num_features))
+        self.register_buffer('num_batches_tracked',
+                             torch.tensor(0, dtype=torch.long))
 
 
 @functools.lru_cache(maxsize=None)

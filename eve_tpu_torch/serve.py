@@ -192,6 +192,9 @@ class ServingEngine:
                                       type(params).__name__))
         elif spec is not None or params is not None:
             raise ValueError('pass either spec+params or artifact, not both')
+        if spec is not None:
+            from eve_tpu_torch.models import zoo
+            zoo.refuse('serving', spec)
         # cuDNN runs float32 convolutions in TF32 by default, which keeps
         # about three decimal digits; the port serves float32 and is held to
         # eve_tpu's float32 results, so TF32 is off for convolutions and

@@ -88,6 +88,7 @@ import torch
 from eve_tpu_torch.cli import common
 from eve_tpu_torch.data.loader import DataLoader, DevicePrefetcher, to_device
 from eve_tpu_torch.models import eve as eve_lib
+from eve_tpu_torch.models import zoo
 from eve_tpu_torch.parallel import mesh as mesh_lib
 from eve_tpu_torch.parallel import temporal
 from eve_tpu_torch.train import checkpoint as checkpoint_lib
@@ -424,6 +425,7 @@ class Experiment:
 
     def __init__(self, config, output_dir_base='./outputs', device='cuda'):
         self.config = config
+        zoo.refuse('training', config)
         self.spec = eve_lib.EveSpec.from_config(config)
         self.device = torch.device(device)
         alone = not mesh_lib.in_process_group()

@@ -169,9 +169,12 @@ def test_init_stream_state_shapes(specs, model):
 
 def test_config_keys_cover_eve_tpu():
     """Every eve_tpu key is read by the port or deferred: exactly one of
-    the two (no key raises unless at its default any longer)."""
+    the two (no key raises unless at its default any longer). The port's
+    own keys (``PORT_KEYS``) are the only others."""
     port = set(tconfig.Config.keys())
     assert not port & tconfig.DEFERRED_KEYS
+    assert tconfig.PORT_KEYS <= port
+    port -= tconfig.PORT_KEYS
     DefaultConfig._reset_instance_for_testing()
     try:
         assert port | tconfig.DEFERRED_KEYS == set(

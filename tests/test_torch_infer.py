@@ -357,10 +357,13 @@ def test_released_pt_weights_load_through_both_loaders(
         assert torch.equal(model.eye_net.state_dict()[k], v), k
 
 
-def test_iterator_spans_with_a_profiler(model):
+@pytest.mark.parametrize('materialize', [True, False],
+                         ids=['copied in step', 'prefetched'])
+def test_iterator_spans_with_a_profiler(model, materialize):
     """Under a profiler each batch gives one ``infer.batch`` with one
     ``infer.h2d`` and one ``infer.d2h`` child, and the outputs equal the
-    same batches' with no profiler, bit for bit."""
+    same batches' with no profiler, bit for bit, on the step-by-step path
+    and on the prefetched one (``materialize_inputs=False``)."""
     from eve_tpu_torch import tracing
     from tests.test_torch_tracing import all_threads_profiler
     clips = _Clips(_batch(5, batch_size=1, sequence_len=3 * T), T)
@@ -368,7 +371,7 @@ def test_iterator_spans_with_a_profiler(model):
     def run():
         return list(infer.iterator(
             model, DataLoader(clips, batch_size=2, num_workers=0),
-            create_images=False))
+            create_images=False, materialize_inputs=materialize))
     plain = run()
     tracing.clear()
     with all_threads_profiler():
@@ -386,3 +389,36 @@ def test_iterator_spans_with_a_profiler(model):
         assert sorted(s.name for s in kids) == ['infer.d2h', 'infer.h2d']
         assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
                    for s in kids)
+
+
+def test_prefetched_iterator_equals_the_copy_in_step(model):
+    """The evaluation path (``materialize_inputs=False``, the copy-in
+    ``DevicePrefetcher``'s) gives the step-by-step path's outputs bit for
+    bit, and a consumer that stops after one batch leaves no loading
+    thread behind."""
+    import threading
+    import time
+    clips = _Clips(_batch(6, batch_size=1, sequence_len=4 * T), T)
+
+    def run(materialize):
+        return list(infer.iterator(
+            model, DataLoader(clips, batch_size=1, num_workers=0),
+            create_images=False, materialize_inputs=materialize))
+    step, prefetched = run(True), run(False)
+    assert len(step) == len(prefetched) == 4
+    for (i, _, want), (j, got_in, got) in zip(step, prefetched):
+        assert i == j and set(want) == set(got)
+        for k in want:
+            assert np.array_equal(want[k], got[k]), k
+        assert 'left_eye_patch' not in got_in
+    before = threading.active_count()
+    batches = infer.iterator(model, DataLoader(clips, batch_size=1,
+                                               num_workers=0),
+                             create_images=False, materialize_inputs=False)
+    next(batches)
+    assert threading.active_count() == before + 1
+    batches.close()
+    deadline = time.monotonic() + 10
+    while threading.active_count() > before and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert threading.active_count() == before

@@ -99,6 +99,9 @@ def test_script_init_common_matches_eve_tpu():
     config, args = harness.script_init_common(argv + ['--device', 'cpu'])
     assert np.random.rand() == want_draw  # both seeded numpy with 0
     ours = config.get_all_key_values()
+    # The port's own keys (eve_tpu lacks them) at the value that selects
+    # eve_tpu's model.
+    assert {k: ours.pop(k) for k in tconfig.PORT_KEYS} == {'gaze_net': 'eve'}
     assert {k: v for k, v in ours.items() if theirs[k] != v} == {}
     assert (config.batch_size, config.auto_resume, args.device) == (
         4, True, 'cpu')
@@ -201,6 +204,8 @@ def test_run_directory_provenance(runs):
     with open(os.path.join(theirs, 'configs', 'combined.json')) as f:
         reference = json.load(f)
     assert set(combined) == set(tconfig.Config.keys())
+    assert {k: combined.pop(k) for k in tconfig.PORT_KEYS} == {
+        'gaze_net': 'eve'}
     assert {k: v for k, v in combined.items() if reference[k] != v} == {}
     with zipfile.ZipFile(os.path.join(ours, 'src.zip')) as zf:
         names = set(zf.namelist())

@@ -35,10 +35,18 @@ def reference():
         DefaultConfig._reset_instance_for_testing()
 
 
+def _differing(ours, theirs):
+    """Keys whose values differ; the port's own keys (``PORT_KEYS``, which
+    eve_tpu lacks) must hold the value that selects eve_tpu's model."""
+    assert {k: ours[k] for k in tconfig.PORT_KEYS} == {'gaze_net': 'eve'}
+    return {k: v for k, v in ours.items()
+            if k not in tconfig.PORT_KEYS and theirs[k] != v}
+
+
 def test_defaults_are_eve_tpus(reference):
     ours = tconfig.Config().get_all_key_values()
     theirs = reference.get_all_key_values()
-    assert {k: v for k, v in ours.items() if theirs[k] != v} == {}
+    assert _differing(ours, theirs) == {}
 
 
 @pytest.mark.parametrize('name', ['eye_net.json', 'refine_net.json'])
@@ -47,8 +55,7 @@ def test_shipped_configs_load_as_in_eve_tpu(name, reference):
     cfg.import_json(os.path.join(CONFIGS, name))
     reference.import_json(os.path.join(CONFIGS, name))
     theirs = reference.get_all_key_values()
-    assert {k: v for k, v in cfg.get_all_key_values().items()
-            if theirs[k] != v} == {}
+    assert _differing(cfg.get_all_key_values(), theirs) == {}
 
 
 def test_learning_rate_is_derived():
