@@ -20,7 +20,8 @@
    (``NORM_CALLS``, a Codalab batch): the share of elements it differs from
    its plain version at, its kernels a call (one) against the plain
    version's, and its time beside the plain version, an empty kernel of as
-   many CTAs and its 4-bytes-an-element bound.
+   many CTAs and its 4-bytes-an-element bound; the same for the NHWC
+   kernel on each call's input stored channels-last.
 4. Serve phase: the full-width ``configs/refine_net.json`` model (128x128
    eyes, CLSTM RefineNet, screen content) on seeded random weights, behind
    ``ServingEngine(device='cuda', max_batch=8)``: 8 sessions x 3 consecutive
@@ -674,6 +675,7 @@ NORM_CALLS = {
     'refinenet_level0_decoder': ((3840, 64, 72, 128), True, 'leaky'),
     'eyenet_layer4': ((7680, 512, 4, 4), False, 'relu'),
     'refinenet_level4': ((3840, 256, 5, 8), True, 'relu'),
+    'refinenet_level0': ((3840, 16, 72, 128), True, 'relu'),
 }
 NORM_SLOPE = 0.010009765625  # LeakyReLU's 0.01 rounded to bf16
 
@@ -712,14 +714,39 @@ def _launch_grid(fn, kernel):
     return int(np.prod(args['grid'])), int(np.prod(args['block']))
 
 
+def _norm_case(nk, name, args):
+    """One norm call of ``norm_kernel_phase``: the share of elements where
+    the kernel differs from the plain version (the order of a plane's
+    float32 sums may tip the bf16 rounding of its scale or shift; under
+    0.1%), its kernels a call (one, counted once), and its grid."""
+    x = args[0]
+    before = nk.LAUNCHES['instance_norm']
+    ours = nk.instance_norm(*args)
+    ref = nk.instance_norm_plain(*args)
+    if not ours.is_contiguous(memory_format=nk.out_format(x)):
+        raise AssertionError('norm %s: the output is not in the layout of '
+                             'its input' % name)
+    differ = int((ours != ref).sum()) / x.numel()
+    del ours, ref
+    if differ > 1e-3:
+        raise AssertionError('norm %s: %.3g of the elements differ from '
+                             'the plain version' % (name, differ))
+    launches = _kernels_per_call(lambda: nk.instance_norm(*args))
+    ctas, threads = _launch_grid(lambda: nk.instance_norm(*args),
+                                 'instance_norm_kernel')
+    if launches != 1 or nk.LAUNCHES['instance_norm'] != before + 3:
+        raise AssertionError('norm %s: %d kernels a call, %d counted'
+                             % (name, launches,
+                                nk.LAUNCHES['instance_norm'] - before))
+    return differ, launches, ctas, threads
+
+
 def norm_kernel_phase(nk, hk):
-    """The norm kernel at ``NORM_CALLS``: the share of elements where it
-    differs from its plain version (the order of a plane's float32 sums
-    may tip the bf16 rounding of its scale or shift; under 0.1%), then its
+    """The norm kernel at ``NORM_CALLS``: ``_norm_case``'s checks, then its
     ms beside the plain version's, an empty kernel of as many CTAs as the
-    traced launch (256 threads a CTA: the launch floor) and its bound, 4
-    bytes an element at 3.35 TB/s, and the kernels each launches a
-    call."""
+    traced launch (the launch floor) and its bound, 4 bytes an element at
+    3.35 TB/s, and the kernels each launches a call; then the NHWC kernel
+    on the same input stored channels-last, beside its own floor."""
     dev = torch.device('cuda', torch.cuda.current_device())
     rows = {}
     for name, (shape, affine, act) in NORM_CALLS.items():
@@ -734,23 +761,9 @@ def norm_kernel_phase(nk, hk):
             bias = 0.1 * torch.randn(c, device=dev, generator=gen)
         args = (x, weight, bias, 1e-5, act, NORM_SLOPE)
         lanes, vecs = nk.norm_launch(h * w)
-        before = nk.LAUNCHES['instance_norm']
-        ours = nk.instance_norm(*args)
-        ref = nk.instance_norm_plain(*args)
-        differ = int((ours != ref).sum()) / x.numel()
-        del ours, ref
-        if differ > 1e-3:
-            raise AssertionError('norm %s: %.3g of the elements differ from '
-                                 'the plain version' % (name, differ))
-        launches = _kernels_per_call(lambda: nk.instance_norm(*args))
+        differ, launches, ctas, threads = _norm_case(nk, name, args)
         plain_launches = _kernels_per_call(
             lambda: nk.instance_norm_plain(*args))
-        ctas, threads = _launch_grid(lambda: nk.instance_norm(*args),
-                                     'instance_norm_kernel')
-        if launches != 1 or nk.LAUNCHES['instance_norm'] != before + 3:
-            raise AssertionError('norm %s: %d kernels a call, %d counted'
-                                 % (name, launches,
-                                    nk.LAUNCHES['instance_norm'] - before))
         iters = 20 if x.numel() > 10 ** 9 else 50
         rows[name] = {
             'shape': list(shape), 'affine': affine, 'act': act,
@@ -765,8 +778,6 @@ def norm_kernel_phase(nk, hk):
             'launches': launches, 'plain_launches': plain_launches,
             'differ_share': differ,
         }
-        del x, args
-        torch.cuda.empty_cache()
         r = rows[name]
         log('norm %s %s: kernel %.5f ms, plain %.5f ms, bound %.5f ms '
             '(bytes), launch floor %.5f ms, %d CTAs of %d threads (%d lanes '
@@ -774,6 +785,34 @@ def norm_kernel_phase(nk, hk):
             % (name, shape, r['ms'], r['plain_ms'], r['bound_ms'],
                r['launch_floor_ms'], ctas, threads, lanes, vecs, launches,
                plain_launches, differ))
+        # The NHWC kernel on the same values stored channels-last.
+        x = x.contiguous(memory_format=torch.channels_last)
+        args = (x,) + args[1:]
+        tiling = nk.nhwc_launch(c, h * w)
+        differ, launches, ctas, threads = _norm_case(nk, name + ' nhwc',
+                                                     args)
+        # The floor: an empty kernel of the same grid, in clusters of the
+        # largest power of two (all the empty kernel takes) up to the
+        # launch's.
+        floor_cluster = next(k for k in (8, 4, 2, 1)
+                             if k <= tiling[1] and ctas % k == 0)
+        r['nhwc'] = {
+            'tiling': list(tiling), 'ctas': ctas, 'threads': threads,
+            'ms': time_gpu(lambda: nk.instance_norm(*args), iters),
+            'launch_floor_ms': time_gpu(
+                lambda: hk.launch_empty_kernel(ctas, floor_cluster, dev),
+                iters),
+            'floor_cluster': floor_cluster,
+            'launches': launches, 'differ_share': differ,
+        }
+        del x, args
+        torch.cuda.empty_cache()
+        n = r['nhwc']
+        log('norm %s nhwc: kernel %.5f ms (nchw %.5f), bound %.5f ms, launch '
+            'floor %.5f ms, %d CTAs of %d threads (tile, cluster, box rows, '
+            'boxes %s), %.2e differ'
+            % (name, n['ms'], r['ms'], r['bound_ms'], n['launch_floor_ms'],
+               ctas, threads, tiling, differ))
     # Host us a call at a small shape, where the host sets the pace: the
     # op (its dispatch and the launch), the wrapper without autograd (past
     # the op), its CUDA implementation alone, and the plain version's eager
@@ -4701,8 +4740,9 @@ def main():
     new_paths['optax_resume_train_launches'] = slice_k['launches']
     new_paths['adversarial_serve_launches'] = slice_k['serve_launches']
     # The bench phase: the gate's record run's inference measurement (4
-    # warm-up and 20 timed forwards) and train step (2 warm-up and 3 x 10
-    # timed steps), and the sustained-serving tool's dispatches.
+    # warm-up forwards and their 4 captures; its 20 timed forwards replay
+    # CUDA graphs, past the wrappers' counts) and train step (2 warm-up
+    # and 3 x 10 timed steps), and the sustained-serving tool's dispatches.
     for path, counts in bench['launches'].items():
         new_paths['bench_%s_launches' % path] = counts
 

@@ -38,6 +38,13 @@ card's ``nvidia-smi`` line under ``card``. The device-ms metrics are
 ``chain.measure_device_ms``'s profiler time, which exists on a card only:
 the gate raises without it and never takes the chained wall in its place.
 
+The gate's ``inference_frames_per_sec`` times CUDA-graph replays of the
+forward (``measure_inference(graph=True)``), so that it follows the card
+as eve_tpu's compiled forward does: eagerly, the bf16 forward's host
+launches take longer than its device work, and the host's clock spreads
+by a quarter within one process. The other host-clock metrics time eager
+calls.
+
 ``measure_train_step_ms`` is eve_tpu's ``measure_train_step_ms``: the
 train step (forward, backward, clip, Adam) at B = 8, T = 30 through the
 port's ``train_step``, on eve_tpu's bench config: the defaults with
@@ -46,6 +53,7 @@ RefineNet and screen content on, so the EyeNet trains too (unlike
 """
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -80,24 +88,54 @@ PER_METRIC_TOL = {
 
 def measure_inference(batch_size=16, seq=30, iters=20, dtype='bfloat16',
                       input_dtype='uint8', tpu_native=False,
-                      stem='patchify', device='cuda', eyes=common.EYES):
+                      stem='patchify', device='cuda', eyes=common.EYES,
+                      graph=False):
     """Inference frames/s with device-resident inputs: each variant warmed
     once, then ``iters`` forwards that cycle them, synchronised at both
-    ends."""
+    ends. ``graph`` (a card only): each variant's forward is captured once
+    as a CUDA graph after its warm-up, and the timed forwards replay the
+    graphs, so that the time is the card's work and not the host's
+    launches (eve_tpu times a compiled forward)."""
     device = common.resolve_device(device)
     spec = common.flagship_spec(dtype, tpu_native, stem)
     model = common.init_flagship(spec, device).eval()
     batches = common.make_batches(batch_size, seq, device, eyes, input_dtype)
+    forwards = [functools.partial(common.infer, model, b) for b in batches]
     with torch.inference_mode():
-        for b in batches:
-            common.infer(model, b)
+        if graph and device.type == 'cuda':
+            forwards = [g.replay for g in _captured(forwards, device)]
+        else:
+            for forward in forwards:
+                forward()
         common.sync(device)
         t0 = time.perf_counter()
         for i in range(iters):
-            common.infer(model, batches[i % len(batches)])
+            forwards[i % len(forwards)]()
         common.sync(device)
         elapsed = time.perf_counter() - t0
     return batch_size * seq * iters / elapsed
+
+
+def _captured(forwards, device):
+    """A CUDA graph of each call in ``forwards``, each warmed once on a
+    side stream first (cuDNN's choices and the layers' cached casts are
+    made outside the capture); the graphs share one memory pool, as they
+    replay one after another on one stream and their outputs are not
+    read."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for forward in forwards:
+            forward()
+    torch.cuda.current_stream(device).wait_stream(side)
+    pool = torch.cuda.graph_pool_handle()
+    graphs = []
+    for forward in forwards:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, pool=pool):
+            forward()
+        graphs.append(g)
+    return graphs
 
 
 def measure_train_step_ms(batch_size=8, seq=30, iters=10, dtype='bfloat16',
@@ -159,7 +197,8 @@ def device_ms(device, **kw):
 # *_device_ms metrics are the profiler's device-busy time.
 CHECKS = {
     'inference_frames_per_sec': (
-        lambda device: measure_inference(device=device), 'frames/s', True),
+        lambda device: measure_inference(device=device, graph=True),
+        'frames/s', True),
     'inference_frames_per_sec_tpu_native': (
         lambda device: measure_inference(tpu_native=True, device=device),
         'frames/s', True),

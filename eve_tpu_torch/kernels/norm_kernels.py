@@ -28,6 +28,10 @@ Beside the kernel, in this module:
   records the call (no autograd graph, no tracing, no dispatch mode), the
   op's CUDA implementation straight away: the op's dispatch doubles the
   host time of a call, and the host sets the pace of a bf16 forward;
+- the layout choice (``layout``): an NCHW-contiguous input takes the NCHW
+  kernels, a channels-last one (the bf16 forward on the card runs
+  channels-last) the NHWC kernel, with its output channels-last too
+  (``nhwc_launch`` tiles it), and any other strides a contiguous copy;
 - a launch count (``LAUNCHES``), bumped once per kernel launch and nowhere
   else.
 
@@ -55,12 +59,29 @@ MAX_VECS = 4
 # Threads of a plane at most (a CTA of the block kernel).
 MAX_BLOCK_THREADS = 1024
 
+# The NHWC kernel: its channel tiles, largest first; the CTAs of a cluster,
+# the widest tile a cluster splits, the rows of a TMA box and the boxes of
+# a slab at most; the bytes of a CTA's slab it aims at (a few CTAs an SM)
+# and takes at most (csrc).
+NHWC_TILES = (256, 128, 64, 32, 16, 8)
+MAX_CLUSTER = 8
+MAX_CLUSTER_TILE = 32
+MAX_BOX_ROWS = 256
+MAX_BOXES = 40
+SLAB_BYTES = 64 * 1024
+MAX_SLAB_BYTES = 200 * 1024
+
 _SIGNATURES = {
     'eve_instance_norm': (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_void_p),
+    'eve_instance_norm_nhwc': (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p),
 }
 
 LAUNCHES = {'instance_norm': 0}
@@ -103,6 +124,65 @@ def norm_launch(hw, aligned=True):
         if lanes > MAX_BLOCK_THREADS:
             return 32, 0
     return lanes, -(-nvec // lanes)
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def nhwc_launch(c, hw):
+    """``(tile, cluster, box_rows, boxes)`` of the NHWC kernel over samples
+    of ``hw`` rows of ``c`` channels, or None where it takes no such shape
+    (``c`` not a multiple of 8, a 1x1 map, a tile's rows beyond what a
+    cluster holds).
+
+    A CTA a (sample, tile) where a tile of at least 32 channels (64-byte
+    rows; the whole width if narrower) fits ``SLAB_BYTES``: the widest such
+    tile. Else the rows of a 32-channel tile (or the whole width) split
+    over the fewest CTAs of a cluster (at most ``MAX_CLUSTER``) that keep
+    each slab near ``SLAB_BYTES`` (at most ``MAX_CLUSTER_TILE`` channels:
+    the kernel's slots for the cluster's partials): on the card a cluster
+    costs a tenth to a fifth of the rate (its CTAs wait at a barrier for
+    the slowest), and rows under 64 bytes more. A slab loads as
+    ``boxes`` TMA boxes (at most ``MAX_BOXES``) of ``box_rows`` rows (a
+    multiple of 8, at most ``MAX_BOX_ROWS``).
+    """
+    if c % VEC or hw < 2:
+        return None
+    tiles = [t for t in NHWC_TILES if c % t == 0]
+    narrow = next(t for t in tiles if t <= MAX_CLUSTER_TILE)
+    alone = [t for t in tiles if t >= narrow and hw * t * 2 <= SLAB_BYTES]
+    tile = alone[0] if alone else narrow
+    cluster = min(MAX_CLUSTER, _cdiv(hw * tile * 2, SLAB_BYTES))
+    rows = _cdiv(hw, cluster)
+    boxes = _cdiv(rows, MAX_BOX_ROWS)
+    box_rows = 8 * _cdiv(rows, 8 * boxes)
+    rows = box_rows * boxes
+    if rows * tile * 2 > MAX_SLAB_BYTES or boxes > MAX_BOXES:
+        return None
+    return tile, _cdiv(hw, rows), box_rows, boxes
+
+
+def layout(x):
+    """How the kernel takes ``x``: 'nchw' (contiguous: the NCHW kernels),
+    'nhwc' (a channels-last (N, C, H, W) tensor that ``nhwc_launch`` takes:
+    the NHWC kernel, and the output channels-last too) or 'copy' (any other
+    strides: a contiguous copy, then the NCHW kernels)."""
+    if x.is_contiguous():
+        return 'nchw'
+    # Plain ints: a traced shape (a fake tensor's) specialises to its value.
+    if x.ndim == 4 and x.is_contiguous(memory_format=torch.channels_last) \
+            and nhwc_launch(int(x.shape[1]),
+                            int(x.shape[2] * x.shape[3])) is not None:
+        return 'nhwc'
+    return 'copy'
+
+
+def out_format(x):
+    """The memory format of the op's output on ``x``."""
+    return (torch.channels_last if layout(x) == 'nhwc'
+            else torch.contiguous_format)
 
 
 @functools.lru_cache(maxsize=None)
@@ -149,7 +229,8 @@ def plain_scale_shift(x, weight, bias, eps):
 
 def instance_norm_plain(x, weight, bias, eps, act, slope):
     """(N, C, H, W) -> the same: the one-pass instance norm of a bf16 input,
-    then ``act``.
+    then ``act``; the output in ``x``'s layout, as PyTorch's elementwise
+    operations keep it.
 
     ``x * scale + shift`` in ``x``'s type, with ``plain_scale_shift``'s
     scale and shift. A 1x1 map gives 0, then the bias.
@@ -172,8 +253,10 @@ def instance_norm_plain(x, weight, bias, eps, act, slope):
 def _norm_op(x: torch.Tensor, weight: Optional[torch.Tensor],
              bias: Optional[torch.Tensor], eps: float, act: str,
              slope: float) -> torch.Tensor:
-    """The CPU implementation: the plain version."""
-    return instance_norm_plain(x, weight, bias, eps, act, slope)
+    """The CPU implementation: the plain version, in the layout the CUDA
+    implementation gives."""
+    return instance_norm_plain(x, weight, bias, eps, act, slope).contiguous(
+        memory_format=out_format(x))
 
 
 def _parameter(t, c, x, what):
@@ -187,7 +270,8 @@ def _parameter(t, c, x, what):
 
 @_norm_op.register_kernel('cuda')
 def _norm_cuda(x, weight, bias, eps, act, slope):
-    """The CUDA implementation: one launch of the kernel."""
+    """The CUDA implementation: one launch of the kernel that ``layout``
+    picks."""
     if x.dtype != torch.bfloat16:
         raise ValueError('the instance_norm kernel takes bfloat16, got %s'
                          % x.dtype)
@@ -197,7 +281,12 @@ def _norm_cuda(x, weight, bias, eps, act, slope):
     if act not in ACTS:
         raise ValueError('instance_norm act %r is none of %s'
                          % (act, sorted(ACTS)))
-    x = x.contiguous()
+    form = layout(x)
+    if form == 'copy':
+        x = x.contiguous()
+    elif form == 'nhwc' and x.data_ptr() % 16:
+        # TMA needs a 16-byte aligned base.
+        x = x.clone(memory_format=torch.channels_last)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -209,13 +298,18 @@ def _norm_cuda(x, weight, bias, eps, act, slope):
                          '2^31 values, got %d of %d' % (planes, hw))
     weight = _parameter(weight, c, x, 'weight')
     bias = _parameter(bias, c, x, 'bias')
-    lanes, vecs = norm_launch(hw, x.data_ptr() % 16 == 0)
-    err = _library().eve_instance_norm(
-        x.data_ptr(), out.data_ptr(),
-        None if weight is None else weight.data_ptr(),
-        None if bias is None else bias.data_ptr(), planes, c, hw, lanes,
-        vecs, mean_factor(planes, hw), float(eps), ACTS[act], float(slope),
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    pointers = (x.data_ptr(), out.data_ptr(),
+                None if weight is None else weight.data_ptr(),
+                None if bias is None else bias.data_ptr())
+    rest = (mean_factor(planes, hw), float(eps), ACTS[act], float(slope),
+            x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    if form == 'nhwc':
+        err = _library().eve_instance_norm_nhwc(
+            *pointers, x.shape[0], c, hw, *nhwc_launch(c, hw), *rest)
+    else:
+        lanes, vecs = norm_launch(hw, x.data_ptr() % 16 == 0)
+        err = _library().eve_instance_norm(*pointers, planes, c, hw, lanes,
+                                           vecs, *rest)
     _check_launch(err, 'instance_norm')
     _count_launch('instance_norm')
     return out
@@ -223,7 +317,7 @@ def _norm_cuda(x, weight, bias, eps, act, slope):
 
 @_norm_op.register_fake
 def _norm_fake(x, weight, bias, eps, act, slope):
-    return torch.empty_like(x, memory_format=torch.contiguous_format)
+    return torch.empty_like(x, memory_format=out_format(x))
 
 
 def _norm_setup_context(ctx, inputs, output):
@@ -333,8 +427,9 @@ def instance_norm(x, weight=None, bias=None, eps=1e-5, act='none',
                   slope=0.0):
     """(N, C, H, W) -> the same: the ``eve_tpu_torch::instance_norm`` op,
     one kernel launch on a bf16 CUDA tensor, the plain version on a CPU
-    tensor. Where ``eager`` holds, a CUDA tensor goes to the op's CUDA
-    implementation without the op's dispatch: the same launch.
+    tensor; channels-last in, channels-last out (``layout``). Where
+    ``eager`` holds, a CUDA tensor goes to the op's CUDA implementation
+    without the op's dispatch: the same launch.
 
     ``weight`` and ``bias``: (C,) tensors on the same device, or None;
     ``act``: 'none', 'relu' or 'leaky' (``slope``: its negative slope in

@@ -15,7 +15,7 @@ keep it in bfloat16; the dense cells run float32.
 import torch
 import torch.nn as nn
 
-from eve_tpu_torch.models.layers import Conv2d
+from eve_tpu_torch.models.layers import Conv2d, cat_channels
 
 
 class RNNCell(nn.RNNCell):
@@ -55,7 +55,7 @@ class ConvRNNCell(nn.Module):
         self.cell = Conv2d(input_size + hidden_size, hidden_size, 3, 1, 1)
 
     def forward(self, x, h):
-        new_h = torch.tanh(self.cell(torch.cat([x, h], dim=1)))
+        new_h = torch.tanh(self.cell(cat_channels([x, h])))
         return new_h, new_h
 
 
@@ -71,7 +71,7 @@ class ConvLSTMCell(nn.Module):
 
     def forward(self, x, state):
         h, c = state
-        gates = self.gates(torch.cat([x, h], dim=1))
+        gates = self.gates(cat_channels([x, h]))
         in_gate, forget_gate, out_gate, cell_gate = gates.chunk(4, dim=1)
         new_c = (torch.sigmoid(forget_gate) * c +
                  torch.sigmoid(in_gate) * torch.tanh(cell_gate))
@@ -92,8 +92,8 @@ class ConvGRUCell(nn.Module):
 
     def forward(self, x, h):
         reset, update = torch.sigmoid(
-            self.gates_1(torch.cat([x, h], dim=1))).chunk(2, dim=1)
-        output = torch.tanh(self.gate_2(torch.cat([reset * h, x], dim=1)))
+            self.gates_1(cat_channels([x, h]))).chunk(2, dim=1)
+        output = torch.tanh(self.gate_2(cat_channels([reset * h, x])))
         new_h = (1.0 - update) * output + update * h
         return new_h, new_h
 

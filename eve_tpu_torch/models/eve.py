@@ -14,8 +14,10 @@ staging of a (B, T, ...) clip batch:
      card), losses and metrics, batched.
 
 The public batch is eve_tpu's: the same keys, NHWC image tensors, uint8 or
-float frames; the NHWC -> NCHW permute happens once, here. Output, loss and
-metric names are eve_tpu's.
+float frames; the NHWC -> NCHW permute happens once, here: a contiguous
+copy, or, where the networks run channels-last (bfloat16 on the card,
+``layers.runs_channels_last``), the permuted view itself, whose storage is
+already channels-last. Output, loss and metric names are eve_tpu's.
 
 ``forward(training=True, generator=...)`` is eve_tpu's training forward:
 the initial gazes get a kappa offset (``std * N(0, 1)`` per clip and eye,
@@ -76,6 +78,7 @@ import torch.nn as nn
 import torch.utils.checkpoint
 
 from eve_tpu_torch import losses as losses_lib
+from eve_tpu_torch.models import layers
 from eve_tpu_torch.models.cells import CONV_CELLS, DENSE_CELLS, zero_state
 from eve_tpu_torch.models.eye_net import EyeNet
 from eve_tpu_torch.models.layers import InstanceNorm
@@ -253,9 +256,13 @@ def _checkpointed(fn, enabled):
                              use_reentrant=False, preserve_rng_state=False)
 
 
-def _nhwc_to_nchw(x):
-    """(N, H, W, C) -> contiguous (N, C, H, W)."""
-    return x.permute(0, 3, 1, 2).contiguous()
+def _nhwc_to_nchw(x, dtype):
+    """(N, H, W, C) -> (N, C, H, W) for a network computing in ``dtype``:
+    channels-last where ``layers.runs_channels_last`` holds (the permuted
+    view of a contiguous NHWC tensor already is), else contiguous."""
+    return x.permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last if layers.runs_channels_last(
+            dtype, x.device) else torch.contiguous_format)
 
 
 class EVE(nn.Module):
@@ -372,7 +379,8 @@ class EVE(nn.Module):
             screen = None
             if spec.load_screen_content:
                 sf = _screen_to_float(full['screen_frame']).to(spec.dtype)
-                screen = _nhwc_to_nchw(sf.reshape((BT,) + sf.shape[2:]))
+                screen = _nhwc_to_nchw(sf.reshape((BT,) + sf.shape[2:]),
+                                       spec.dtype)
             net_in = refine_net.assemble_input(
                 interm['heatmap_initial'].reshape(BT, h, w), screen,
                 screen_size=spec.screen_size)
@@ -473,7 +481,8 @@ class EVE(nn.Module):
         # type's bytes.
         patches = _nhwc_to_nchw(torch.cat([
             _to_compute(full[k], spec.dtype).reshape((BT,) + left.shape[2:])
-            for k in ('left_eye_patch', 'right_eye_patch')], dim=0))
+            for k in ('left_eye_patch', 'right_eye_patch')], dim=0),
+            spec.dtype)
         head_pose = None
         if spec.eye_net_use_head_pose_input:
             head_pose = torch.cat([full['left_h'].reshape(BT, 2),

@@ -1,9 +1,18 @@
 """Shared layers, NCHW: convolution, instance norm, batch norm (eval),
-adaptive max-pool, bilinear resize, depth-to-space.
+adaptive max-pool, bilinear resize, depth-to-space, channel concatenation.
 
 The counterpart of ``eve_tpu/models/layers.py``. eve_tpu emulates torch's
 own semantics (adaptive max-pool windows, bilinear resize with
 ``align_corners=False``), so here they are torch's functions.
+
+Memory layout: the shapes are always (N, C, H, W), but where the networks
+compute in bfloat16 on the card (``runs_channels_last``) the activations
+are stored channels-last (NHWC): cuDNN's bf16 convolutions are NHWC
+kernels, and NCHW tensors would cost a transpose on each side of every
+convolution. ``Conv2d`` then keeps its cast weight channels-last, so its
+output is channels-last whatever its input; the norm, the resize and the
+concatenation keep their input's layout. float32 (cuDNN's NCHW kernels with
+TF32 off) and the CPU (held to eve_tpu bitwise) stay NCHW.
 
 Compute type: the parameters are float32 whatever the network computes in.
 A bfloat16 activation times a float32 parameter would promote to float32
@@ -13,6 +22,7 @@ do (``kernel.astype(x.dtype)``).
 """
 
 import functools
+import itertools
 import struct
 
 import torch
@@ -23,6 +33,49 @@ from eve_tpu_torch.kernels import norm_kernels
 
 # LeakyReLU's negative slope in the networks.
 LEAKY_SLOPE = 0.01
+
+
+def runs_channels_last(dtype, device):
+    """Whether a network computing in ``dtype`` on ``device`` stores its
+    activations channels-last: bfloat16 on the card."""
+    return dtype == torch.bfloat16 and torch.device(device).type == 'cuda'
+
+
+def is_channels_last(x):
+    """Whether ``x`` (N, C, H, W) keeps its channels innermost (stride 1)
+    with more than one channel and more than one value a map, where the two
+    layouts differ."""
+    return (x.dim() == 4 and x.shape[1] > 1 and x.shape[2] * x.shape[3] > 1
+            and x.stride(1) == 1)
+
+
+# Elements a CUDA concatenation writes with its batched copy kernel; from
+# 2^31 on it copies each input apart with strided element-wise kernels.
+CAT_INDEX_LIMIT = 2 ** 31 - 1
+
+
+def cat_channels(tensors):
+    """``torch.cat(tensors, dim=1)``, channels-last where any input is
+    (``torch.cat`` gives NCHW for inputs of mixed layouts, e.g. a 1-channel
+    map beside a channels-last one): one copy kernel either way.
+
+    A channels-last output of ``CAT_INDEX_LIMIT`` elements or more
+    (RefineNet's level-0 decoder input at a Codalab batch) is concatenated
+    in slices of the batch into one output where nothing records the call,
+    so that each slice takes the batched kernel.
+    """
+    if not any(is_channels_last(t) for t in tensors):
+        return torch.cat(tensors, dim=1)
+    nhwc = [t.permute(0, 2, 3, 1) for t in tensors]
+    n, h, w = nhwc[0].shape[:3]
+    c = sum(t.shape[3] for t in nhwc)
+    per = max(1, CAT_INDEX_LIMIT // (h * w * c))
+    if n <= per or not norm_kernels.eager(*tensors):
+        return torch.cat(nhwc, dim=3).permute(0, 3, 1, 2)
+    out = nhwc[0].new_empty((n, h, w, c))
+    for i in range(0, n, per):
+        torch.cat([t[i:i + per] for t in nhwc], dim=3, out=out[i:i + per])
+    return out.permute(0, 3, 1, 2)
 
 
 class Conv2d(nn.Conv2d):
@@ -39,18 +92,23 @@ class Conv2d(nn.Conv2d):
     last bit only, and the fused form saves a pass over the output.
 
     Without autograd the cast weight and bias are kept from call to call
-    (``_casts``), so that a forward launches no casts.
+    (``_casts``), so that a forward launches no casts. Where
+    ``runs_channels_last`` holds, the cast weight is channels-last, so cuDNN
+    neither converts it at each call nor writes an NCHW output.
     """
 
     def forward(self, x):
         if x.dtype == self.weight.dtype:
             return super().forward(x)
-        weight, bias = self._casts(x.dtype)
+        weight, bias = self._casts(
+            x.dtype, torch.channels_last if runs_channels_last(
+                x.dtype, x.device) else torch.contiguous_format)
         y = self._conv_forward(x, weight, None)
         return y if bias is None else y + bias
 
-    def _casts(self, dtype):
-        """The weight and the bias (as (C, 1, 1), or None) in ``dtype``.
+    def _casts(self, dtype, memory_format=torch.contiguous_format):
+        """The weight (in ``memory_format``) and the bias (as (C, 1, 1), or
+        None) in ``dtype``.
 
         Where ``norm_kernels.eager`` holds and the parameters track their
         versions (none is an inference tensor), the casts made at one call
@@ -65,15 +123,17 @@ class Conv2d(nn.Conv2d):
         params = (w,) if b is None else (w, b)
         if torch.is_grad_enabled() or not norm_kernels.eager(*params) or \
                 any(p.is_inference() for p in params):
-            return w.to(dtype), None if b is None else \
-                b.to(dtype)[:, None, None]
-        key = (dtype,) + tuple((p.data_ptr(), p._version) for p in params)
+            return w.to(dtype, memory_format=memory_format), \
+                None if b is None else b.to(dtype)[:, None, None]
+        key = (dtype, memory_format) + tuple((p.data_ptr(), p._version)
+                                             for p in params)
         cached = self.__dict__.get('_cast_cache')
         if cached is None or cached[0] != key:
             # Outside inference mode, so that the casts also serve a
             # forward under torch.no_grad.
             with torch.inference_mode(False):
-                casts = (w.detach().to(dtype), None if b is None else
+                casts = (w.detach().to(dtype, memory_format=memory_format),
+                         None if b is None else
                          b.detach().to(dtype)[:, None, None])
             cached = (key, [p.detach() for p in params], casts)
             self.__dict__['_cast_cache'] = cached
@@ -187,9 +247,39 @@ class LeakyReLU(nn.LeakyReLU):
                             self.inplace)
 
 
+@functools.lru_cache(maxsize=None)
+def _pool_window(n, o):
+    """``(kernel, stride, padding)`` of a max-pool whose windows over ``n``
+    values, clipped to them, are the adaptive pool's ``o`` windows, or None
+    where none is."""
+    windows = [(i * n // o, -(-(i + 1) * n // o)) for i in range(o)]
+    # The stride is a step between starts (the first start may be clipped).
+    strides = {b[0] - a[0] for a, b in zip(windows, windows[1:])} or {n}
+    for stride, kernel in itertools.product(sorted(strides),
+                                            range(1, n + 1)):
+        for padding in range(kernel // 2 + 1):
+            if (n + 2 * padding - kernel) // stride + 1 == o and windows == [
+                    (max(i * stride - padding, 0),
+                     min(i * stride - padding + kernel, n))
+                    for i in range(o)]:
+                return kernel, stride, padding
+    return None
+
+
 def adaptive_max_pool(x, out_hw):
-    """AdaptiveMaxPool2d: window [floor(i*n/o), ceil((i+1)*n/o)), e.g. 9 -> 5."""
-    return F.adaptive_max_pool2d(x, tuple(out_hw))
+    """AdaptiveMaxPool2d: window [floor(i*n/o), ceil((i+1)*n/o)), e.g. 9 -> 5.
+
+    Where a plain max-pool has the same windows (every level of RefineNet:
+    halvings, and 9 -> 5 as kernel 3, stride 2, padding 1), it runs as one:
+    the same maxima, and on the card a channels-last kernel, where the
+    adaptive pool has only an NCHW one and copies a channels-last input
+    there and its outputs back.
+    """
+    h, w = _pool_window(x.shape[-2], out_hw[0]), _pool_window(x.shape[-1],
+                                                              out_hw[1])
+    if h is None or w is None:
+        return F.adaptive_max_pool2d(x, tuple(out_hw))
+    return F.max_pool2d(x, (h[0], w[0]), (h[1], w[1]), (h[2], w[2]))
 
 
 def _resize_weights(n_in, n_out, device, dtype):
@@ -232,7 +322,10 @@ def resize_bilinear(x, out_hw):
     each rounded to bfloat16. ``F.interpolate`` rounds once from float32
     weights and differs from eve_tpu by a bfloat16 ulp at ~30% of the
     outputs (measured on the CPU, where the two contractions match eve_tpu
-    bitwise).
+    bitwise). A channels-last input is contracted over its NHWC storage
+    (the width as a product batched over N*H, then the height batched over
+    N) and comes out channels-last: the same order and roundings, with no
+    copy to NCHW.
     """
     out_h, out_w = tuple(out_hw)
     if (out_h, out_w) == tuple(x.shape[-2:]):
@@ -242,7 +335,12 @@ def resize_bilinear(x, out_hw):
                              align_corners=False, antialias=False)
     w_w = _resize_weights(x.shape[-1], out_w, x.device, x.dtype)
     w_h = _resize_weights(x.shape[-2], out_h, x.device, x.dtype)
-    return torch.matmul(w_h.t(), torch.matmul(x, w_w))
+    if not is_channels_last(x):
+        return torch.matmul(w_h.t(), torch.matmul(x, w_w))
+    n, c, h, w = x.shape
+    y = torch.matmul(w_w.t(), x.permute(0, 2, 3, 1).reshape(n * h, w, c))
+    y = torch.matmul(w_h.t(), y.reshape(n, h, out_w * c))
+    return y.reshape(n, out_h, out_w, c).permute(0, 3, 1, 2)
 
 
 def depth_to_space(x, block):

@@ -28,7 +28,8 @@ import torch.nn as nn
 
 from eve_tpu_torch.models.cells import CONV_CELLS, zero_state
 from eve_tpu_torch.models.layers import (
-    Conv2d, InstanceNorm, LeakyReLU, adaptive_max_pool, resize_bilinear)
+    Conv2d, InstanceNorm, LeakyReLU, adaptive_max_pool, cat_channels,
+    resize_bilinear)
 
 LEVEL_CHANNELS = (16, 32, 64, 128, 256)
 LEVEL_SHAPES = ((72, 128), (36, 64), (18, 32), (9, 16), (5, 8))
@@ -136,7 +137,7 @@ class RefineNet(nn.Module):
             heatmap_initial.to(self.compute_dtype).unsqueeze(1),
             (screen_size[1], screen_size[0]))
         if self.load_screen_content:
-            return torch.cat([screen_frame.to(self.compute_dtype), hm], dim=1)
+            return cat_channels([screen_frame.to(self.compute_dtype), hm])
         return hm
 
     def encode(self, x):
@@ -168,7 +169,7 @@ class RefineNet(nn.Module):
         levels = list(self._levels())
         for k in range(4, -1, -1):
             if self.use_skip_connections:
-                x = torch.cat([x, skips[k]], dim=1)
+                x = cat_channels([x, skips[k]])
             x = levels[k].decoder_blocks[0](x)
             if k > 0:
                 x = resize_bilinear(x, LEVEL_SHAPES[k - 1])

@@ -38,7 +38,8 @@ import torch.nn.functional as F
 
 from eve_tpu_torch.models.cells import CONV_CELLS
 from eve_tpu_torch.models.layers import (
-    Conv2d, LeakyReLU, adaptive_max_pool, depth_to_space, resize_bilinear)
+    Conv2d, LeakyReLU, adaptive_max_pool, cat_channels, depth_to_space,
+    resize_bilinear)
 from eve_tpu_torch.models.refine_net import PreactBlock, RefineNet
 
 PATCH_SIZE = 4
@@ -122,7 +123,7 @@ class RefineNetTPU(nn.Module):
         """The decoder up to the head's shared features, 64@18x32."""
         for k in range(2, -1, -1):
             if self.use_skip_connections:
-                x = torch.cat([x, skips[k]], dim=1)
+                x = cat_channels([x, skips[k]])
             x = self.dec_blocks[k](x)
             if k > 0:
                 x = resize_bilinear(x, LEVEL_SHAPES[k - 1])

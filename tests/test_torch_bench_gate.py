@@ -167,6 +167,19 @@ def test_a_missing_device_time_raises(monkeypatch):
     assert inference.CHECKS['inference_device_ms'][0]('cpu') == 7.0
 
 
+def test_the_gates_bf16_inference_replays_graphs(monkeypatch):
+    """The gate's ``inference_frames_per_sec`` times CUDA-graph replays of
+    the forward; the native topology's metric times eager calls."""
+    calls = []
+    monkeypatch.setattr(inference, 'measure_inference',
+                        lambda **kw: calls.append(kw) or 1.0)
+    for name in ('inference_frames_per_sec',
+                 'inference_frames_per_sec_tpu_native'):
+        assert inference.CHECKS[name][0]('cpu') == 1.0
+    assert calls == [{'device': 'cpu', 'graph': True},
+                     {'tpu_native': True, 'device': 'cpu'}]
+
+
 @pytest.mark.parametrize('flag', ['--check', '--record'])
 def test_main_routes_the_gate_flags(flag, monkeypatch):
     calls = []

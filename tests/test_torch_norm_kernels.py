@@ -11,13 +11,20 @@ plane size; the wrapper skips the op's dispatch only where nothing records the
 call; a bf16 ``Conv2d`` keeps its casts only without autograd and while its
 parameters are unchanged.
 
+Channels-last, on the CPU: the plain version on a channels-last input
+gives the NCHW values within one bf16 ulp, in the input's layout; the op's
+fake gives the layout its CUDA implementation writes; the layout choice
+(NCHW kernels, the NHWC kernel, or a contiguous copy) and the NHWC
+kernel's tiling.
+
 On the card (``cuda`` marker; skipped without one): the kernel against the
-plain version at every norm of a bf16 EVE forward and at the odd shapes (a
-1x1 map, planes not a multiple of 8 values, one plane, an unaligned
-tensor, a plane too large for registers), where outputs may differ only by
-the order of a plane's float32 sums tipping the bf16 rounding of its scale
-or shift; the call past the op against the op; the gradient through the
-op; and the forward's launch count.
+plain version at every norm of a bf16 EVE forward, at the NHWC kernel's
+shapes of a Codalab forward (channels-last), and at the odd shapes (a 1x1
+map, planes not a multiple of 8 values, one plane, an unaligned tensor, a
+plane too large for registers), where outputs may differ only by the order
+of a plane's float32 sums tipping the bf16 rounding of its scale or shift;
+the call past the op against the op; the gradient through the op; and the
+forward's launch count.
 """
 
 import os
@@ -214,6 +221,98 @@ def test_op_gradients_equal_the_plain_version(act):
     assert conv.weight.grad is not None
 
 
+@pytest.mark.parametrize('act', ['none', 'relu', 'leaky'])
+def test_op_passes_opcheck_channels_last(act):
+    """The same on a channels-last input the NHWC kernel takes: the CPU
+    implementation and the fake give its layout."""
+    x = _inputs((2, 16, 6, 8), 23, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+    w, b = _affine(16, 24)
+    op = torch.ops.eve_tpu_torch.instance_norm.default
+    torch.library.opcheck(op, (x, w.requires_grad_(True),
+                               b.requires_grad_(True), 1e-5, act, BF16_SLOPE))
+
+
+@pytest.mark.parametrize('act', ['none', 'relu', 'leaky'])
+@pytest.mark.parametrize('affine', [False, True], ids=['plain', 'affine'])
+def test_channels_last_plain_matches_nchw(affine, act):
+    """On a channels-last bf16 input the norm gives the NCHW input's values
+    within one bf16 ulp (its float32 sums in another order), channels-last,
+    at the shapes of both networks (an odd channel count and a 1x1 map
+    too)."""
+    for i, shape in enumerate(((3, 64, 16, 16), (2, 16, 9, 16),
+                               (2, 256, 5, 8), (2, 6, 7, 9), (2, 8, 1, 1))):
+        x = _inputs(shape, 40 + i, torch.bfloat16)
+        w, b = _affine(shape[1], 50 + i)
+        params = (w, b) if affine else (None, None)
+        want = nk.instance_norm(x, *params, 1e-5, act, BF16_SLOPE)
+        xl = x.contiguous(memory_format=torch.channels_last)
+        got = nk.instance_norm(xl, *params, 1e-5, act, BF16_SLOPE)
+        assert got.stride() == torch.empty_like(
+            xl, memory_format=nk.out_format(xl)).stride(), shape
+        ulps = (got.contiguous().view(torch.int16).int()
+                - want.view(torch.int16).int()).abs()
+        assert int(ulps.max()) <= 1, shape
+
+
+@pytest.mark.parametrize('case,want', [
+    ('nchw', 'nchw'), ('channels_last', 'nhwc'),
+    ('channels_last_odd_channels', 'copy'), ('channels_last_1x1', 'nchw'),
+    ('sliced', 'copy'), ('three_dims', 'nchw'),
+    ('channels_last_too_large', 'copy')])
+def test_layout_choice(case, want):
+    """Contiguous: the NCHW kernels; channels-last of a shape the NHWC
+    kernel tiles: the NHWC kernel; any other strides (channels-last with a
+    channel count the kernel does not take, a slice, a map too large for a
+    cluster): a contiguous copy. A 1x1 map is both layouts at once: NCHW."""
+    x = {
+        'nchw': lambda: torch.empty(2, 16, 4, 4),
+        'channels_last': lambda: torch.empty(2, 16, 4, 4).contiguous(
+            memory_format=torch.channels_last),
+        'channels_last_odd_channels': lambda: torch.empty(2, 6, 4, 4)
+        .contiguous(memory_format=torch.channels_last),
+        'channels_last_1x1': lambda: torch.empty(2, 16, 1, 1).contiguous(
+            memory_format=torch.channels_last),
+        'sliced': lambda: torch.empty(2, 16, 4, 8, dtype=torch.bfloat16)[
+            ..., ::2],
+        'three_dims': lambda: torch.empty(16, 4, 4),
+        'channels_last_too_large': lambda: torch.empty(
+            1, 16, 300, 200).contiguous(memory_format=torch.channels_last),
+    }[case]().bfloat16()
+    assert nk.layout(x) == want
+    fmt = nk.out_format(x)
+    assert fmt == (torch.channels_last if want == 'nhwc'
+                   else torch.contiguous_format)
+
+
+@pytest.mark.parametrize('c,hw,want', [
+    (64, 4096, (32, 4, 256, 4)),     # the EyeNet stem, 64x64: a cluster
+    (64, 1024, (32, 1, 256, 4)),     # layer1, 32x32: a 32-channel tile
+    (128, 256, (128, 1, 256, 1)),    # layer2, 16x16
+    (256, 64, (256, 1, 64, 1)),      # layer3, 8x8
+    (512, 16, (256, 1, 16, 1)),      # layer4, 4x4: two tiles
+    (16, 9216, (16, 5, 232, 8)),     # RefineNet level 0, 72x128
+    (64, 9216, (32, 8, 232, 5)),     # its decoder input
+    (32, 2304, (32, 3, 256, 3)),     # level 1, 36x64
+    (128, 144, (128, 1, 144, 1)),    # level 3, 9x16
+    (256, 40, (256, 1, 40, 1)),      # level 4, 5x8
+    (24, 63, (8, 1, 64, 1)),         # odd: 8-channel tiles
+    (6, 64, None), (16, 1, None), (16, 60000, None),
+])
+def test_nhwc_launch(c, hw, want):
+    got = nk.nhwc_launch(c, hw)
+    assert got == want
+    if got:
+        tile, cluster, box_rows, boxes = got
+        rows = box_rows * boxes
+        assert c % tile == 0 and box_rows % 8 == 0
+        assert box_rows <= nk.MAX_BOX_ROWS and boxes <= nk.MAX_BOXES
+        assert cluster <= nk.MAX_CLUSTER
+        assert cluster == 1 or tile <= nk.MAX_CLUSTER_TILE
+        assert (cluster - 1) * rows < hw <= cluster * rows
+        assert rows * tile * 2 <= nk.MAX_SLAB_BYTES
+
+
 def test_fake_op_gives_shapes_and_launches_nothing():
     from torch._subclasses.fake_tensor import FakeTensorMode
     nk.reset_launch_counts()
@@ -223,6 +322,14 @@ def test_fake_op_gives_shapes_and_launches_nothing():
                              torch.empty(16), torch.empty(16), act='leaky',
                              slope=BF16_SLOPE)
     assert y.shape == (4, 16, 72, 128) and y.dtype == torch.bfloat16
+    assert y.is_contiguous()
+    with FakeTensorMode():
+        y = nk.instance_norm(torch.empty((4, 16, 72, 128),
+                                         dtype=torch.bfloat16).contiguous(
+                                             memory_format=torch.channels_last),
+                             act='relu')
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert not y.is_contiguous()
     assert nk.LAUNCHES == {'instance_norm': 0}
 
 
@@ -420,6 +527,7 @@ def _compare(x, weight, bias, act, slope=BF16_SLOPE, eps=1e-5):
     got = nk.instance_norm(x, weight, bias, eps, act, slope)
     want = nk.instance_norm_plain(x, weight, bias, eps, act, slope)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=nk.out_format(x))
     differ = got != want
     n_diff = int(differ.sum())
     if n_diff:
@@ -492,18 +600,32 @@ def test_eve_forward_launches_the_kernel_at_every_norm(card_forward):
     assert n_diff <= MAX_DIFF_SHARE * total
 
 
+# The NHWC kernel's shapes in a Codalab forward, (C, H, W): EyeNet's
+# stages and RefineNet's levels (its 72 x 128 maps split over a cluster).
+NHWC_SHAPES = [(64, 64, 64), (64, 32, 32), (128, 16, 16), (256, 8, 8),
+               (512, 4, 4), (16, 72, 128), (32, 72, 128), (64, 72, 128),
+               (32, 36, 64), (64, 18, 32), (128, 9, 16), (256, 5, 8)]
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(card_forward):
     """Every (C, H, W) of the forward's norms at N = 3, affine or not, each
-    activation, on seeded inputs; then the odd shapes."""
+    activation, on seeded inputs, in both layouts, and the NHWC kernel's
+    shapes channels-last; then the odd shapes."""
     shapes = sorted({tuple(x.shape[1:]) for _, x in card_forward['norms']})
     extra = [(2, 5, 1, 1), (2, 3, 7, 9), (2, 3, 3, 3), (1, 1, 9, 16),
              (1, 1, 72, 128), (2, 4, 1, 8), (1, 2, 256, 256)]
     n_diff = total = 0
-    cases = [(3,) + s for s in shapes] + extra
+    cases = ([((3,) + s, False) for s in shapes]
+             + [((3,) + s, True) for s in sorted(set(shapes)
+                                                 | set(NHWC_SHAPES))]
+             + [(s, False) for s in extra])
     with torch.inference_mode():
-        for i, shape in enumerate(cases):
+        for i, (shape, last) in enumerate(cases):
             x = _inputs(shape, 100 + i, torch.bfloat16, 'cuda')
+            if last:
+                x = x.contiguous(memory_format=torch.channels_last)
+                assert nk.layout(x) == 'nhwc', shape
             w, b = _affine(shape[1], 200 + i, 'cuda')
             for weight, bias in ((None, None), (w, b)):
                 for act in ('none', 'relu', 'leaky'):
@@ -522,6 +644,33 @@ def test_kernel_matches_plain_on_card(card_forward):
     print('%d shapes: %d of %d elements differ (%.2e)'
           % (len(cases) + 1, n_diff, total, n_diff / total))
     assert n_diff <= MAX_DIFF_SHARE * total
+
+
+@pytest.mark.cuda
+def test_nhwc_kernel_runs_on_each_card():
+    """The NHWC kernel's shared-memory opt-in (past 48 KB) holds per card:
+    the same channels-last norms on cuda:0, then on cuda:1, give the same
+    values, alone and in a cluster."""
+    _require_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two CUDA cards')
+    outs = []
+    with torch.inference_mode():
+        for card in ('cuda:0', 'cuda:1'):
+            got = []
+            for i, shape in enumerate([(2, 64, 32, 32), (2, 16, 72, 128)]):
+                x = _inputs(shape, 300 + i, torch.bfloat16, card).contiguous(
+                    memory_format=torch.channels_last)
+                assert nk.layout(x) == 'nhwc'
+                w, b = _affine(shape[1], 310 + i, card)
+                d, t = _compare(x, w, b, 'leaky')
+                assert d <= MAX_DIFF_SHARE * t
+                got.append(nk.instance_norm(x, w, b, 1e-5, 'leaky',
+                                            BF16_SLOPE).cpu())
+            torch.cuda.synchronize(card)
+            outs.append(got)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

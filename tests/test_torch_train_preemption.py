@@ -53,8 +53,12 @@ def _few_threads():
 
 @pytest.fixture(autouse=True)
 def _sigterm():
-    """Each test starts without a request and leaves SIGTERM as it was."""
+    """Each test starts without a request and with SIGTERM's default
+    disposition (a test file run before in the same process, such as the
+    serving CLI's, may have left its handler), and leaves SIGTERM as it
+    was."""
     old = signal.getsignal(signal.SIGTERM)
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
     harness._PREEMPTION.clear()
     yield
     harness._PREEMPTION.clear()
