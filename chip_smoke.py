@@ -15,13 +15,15 @@
    the serving
    path's N=80 and the Codalab path's N=3840 (render also at S=3) beside an
    empty kernel of the same launch shape, the launch floor, and checks the
-   soft-argmax's cluster choice at N=3840. Then the norm kernel
+   soft-argmax's cluster choice at N=3840. Then the NHWC norm kernel
    (``norm_kernel_phase``) at the main path's extreme calls
-   (``NORM_CALLS``, a Codalab batch): the share of elements it differs from
-   its plain version at, its kernels a call (one) against the plain
-   version's, and its time beside the plain version, an empty kernel of as
-   many CTAs and its 4-bytes-an-element bound; the same for the NHWC
-   kernel on each call's input stored channels-last.
+   (``NORM_CALLS``, a Codalab batch, channels-last): the share of elements
+   it differs from its plain version at, its kernels a call (one) against
+   the plain version's, and its time beside the plain version, an empty
+   kernel of as many CTAs and its 4-bytes-an-element bound; then the
+   general kernel at the shapes it takes (``GENERAL_NORM_CALLS``: a 1x1
+   map, six channels, an NCHW main-path shape): the same checks and its
+   time.
 4. Serve phase: the full-width ``configs/refine_net.json`` model (128x128
    eyes, CLSTM RefineNet, screen content) on seeded random weights, behind
    ``ServingEngine(device='cuda', max_batch=8)``: 8 sessions x 3 consecutive
@@ -29,9 +31,8 @@
    them, one request over HTTP. Checks finite outputs of the right shapes,
    that each kernel launched once a dispatch, that each session's chunks
    equal one T=30 forward, and that one clip on the card matches the port's
-   CPU forward; then profiles one serving-shaped forward (torch.profiler)
-   and runs one forward with ground-truth labels (B=8, T=10), which must
-   launch the render twice and derive the CPU's labels.
+   CPU forward; then runs one forward with ground-truth labels (B=8,
+   T=10), which must launch the render twice and derive the CPU's labels.
 5. Training phase: the full-width ``configs/refine_net.json`` model
    (frozen GRU-128 EyeNet, CLSTM-64 RefineNet with screen content and
    skips), ``batch_size`` 8, T = 30, ``eye_net_load_pretrained`` overridden
@@ -45,9 +46,7 @@
    checkpoint files, the resumed losses against the uninterrupted run's,
    the launches of each kernel per training step and per eval batch, one
    step on the card against the same step on the CPU (B = 2, T = 10), and
-   prints step time, frames/s, peak memory, a profile of one step (the
-   heatmap kernels' share included) and its forward, backward and update
-   times.
+   prints step time, frames/s and peak memory.
 6. Train-CLI phase: (a) ``eve_tpu_torch.cli.train.run`` (the CLI after its
    dataset specs) in child processes, on in-memory clips:
    ``configs/refine_net.json`` at full width, ``eye_net_load_pretrained``
@@ -67,8 +66,8 @@
    loaded as steps, render 6 and soft-argmax 2 launches a step (twice one
    source's), ``full_loss`` the sum of the sources'. (c)
    ``configs/eye_net.json`` at its own width (B = 16, T = 30, EyeNet
-   trainable) for 6 steps: step time, frames/s, peak memory, a profiled
-   step, no heatmap kernel launched, and one B = 2, T = 10 step against the
+   trainable) for 6 steps: step time, frames/s, peak memory, no heatmap
+   kernel launched, and one B = 2, T = 10 step against the
    CPU (with cuDNN and without it) with the CPU's own spread under a 1e-7
    weight perturbation printed beside it.
 7. Eval phase: the full-width ``configs/refine_net.json`` model on seeded
@@ -87,8 +86,8 @@
    ``write_submission``: the nesting, lengths and int64 stamps of the
    pkl.gz, the zip, the ragged batch's clips against the same clips inside
    a full batch, render 1 and soft-argmax 1 launches a batch. Prints eval
-   clips/s and frames/s, batch wall times, the device-busy share of one
-   profiled batch and the peak memory. The EVE dataset reader and the
+   clips/s and frames/s, batch wall times and the peak memory. The EVE
+   dataset reader and the
    overlay video (``h5py``, ``cv2``, ``ffmpeg``, which the card's machine
    lacks) are held against eve_tpu by the CPU tests instead; here the clips
    are in memory.
@@ -97,12 +96,12 @@
    session's chunks against one T=30 forward, 4 clips against the port's
    CPU bfloat16 forward, both within the card's own bfloat16-vs-float32
    drift on the same clips; forward hooks: every ResNet and RefineNet
-   convolution receives bfloat16 and the GRU float32; a profiled B=8,
-   T=10 forward whose convolution kernels must include bfloat16 ones); (b)
-   6 ``configs/refine_net.json`` steps at B = 8, T = 30 and (c) 6
-   ``configs/eye_net.json`` steps at B = 16, T = 30 through the harness,
-   parameters and Adam's moments float32, each with a profiled step, and
-   one B = 2, T = 10 bfloat16 step against the CPU (RefineNet gradients
+   convolution receives bfloat16 and the GRU float32; the convolution
+   kernels of a B=8, T=10 forward, by the profiler, must include bfloat16
+   ones); (b) 6 ``configs/refine_net.json`` steps at B = 8, T = 30 and (c)
+   6 ``configs/eye_net.json`` steps at B = 16, T = 30 through the harness,
+   parameters and Adam's moments float32, and one B = 2, T = 10 bfloat16
+   step against the CPU (RefineNet gradients
    within their bfloat16-vs-float32 drift); (d)
    one Codalab batch of 128 x 30 through ``infer.iterator``. Step times,
    frames/s, batch walls and peak memory are printed beside the float32
@@ -118,17 +117,15 @@
    outputs and session states must equal the default engine's (bitwise,
    or within the chunked-vs-whole tolerances with the difference printed),
    each kernel launches once a dispatch, and each mode prints a dispatch's
-   wall time, device-busy time (profiler), host time (their difference)
-   and the bytes copied each way (the profiler trace's memcpy events).
+   wall time.
 10. Native phase (slice G, last): ``configs/refine_net.json`` with
    ``tpu_native_arch`` (the patchify EyeNet stem, RefineNetTPU, the
    'heatmap' readout) at full width, at float32 and bfloat16: (a) served
    in the three ways as in 9, chunks vs one T=30 forward and 4 clips card
-   vs CPU, a profiled B=8, T=10 forward, peak memory; (b) 4 training steps
-   at B = 8, T = 30 through the harness (render 3 and soft-argmax 1 a
-   step), the last checkpoint read back bitwise through
-   ``infer.model_setup``, a profiled step and (float32) one B = 2, T = 10
-   step card vs CPU; (d) one Codalab batch of 128 x 30; then (c)
+   vs CPU, peak memory; (b) 4 training steps at B = 8, T = 30 through the
+   harness (render 3 and soft-argmax 1 a step), the last checkpoint read
+   back bitwise through ``infer.model_setup`` and (float32) one B = 2,
+   T = 10 step card vs CPU; (d) one Codalab batch of 128 x 30; then (c)
    ``configs/eye_net.json`` with the patchify stem (6 steps at B = 16 and
    card vs CPU gradients) and one labelled forward each of the 'gated'
    readout and the 'patchify8' stem. Every figure is printed beside the
@@ -159,7 +156,7 @@
    of ``make_mesh(1)``, and of two replicas sharing cuda:0 with
    ``device_resident`` off and on: outputs and session states held against
    the default engine's at the serving tolerance, each kernel launched once
-   a dispatch and replica, a dispatch's wall, device and host ms; (b) the
+   a dispatch and replica, a dispatch's wall ms; (b) the
    Codalab clips through ``infer.iterator(mesh=)`` of two replicas against
    the same batches on one device (the ragged batch padded and cut),
    frames/s and peak memory beside one device's; (c) ``cli.train.run`` in
@@ -244,7 +241,6 @@ CONFIG = os.path.join(ROOT, 'configs', 'refine_net.json')
 TRAIN_OUT = os.path.join(ROOT, 'build', 'chip_smoke_train')
 EVAL_OUT = os.path.join(ROOT, 'build', 'chip_smoke_eval')
 CLI_OUT = os.path.join(ROOT, 'build', 'chip_smoke_cli')
-SERVE_OUT = os.path.join(ROOT, 'build', 'chip_smoke_serve')
 EXPORT_OUT = os.path.join(ROOT, 'build', 'chip_smoke_export')
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and float32
@@ -667,9 +663,9 @@ def kernel_timings(hk, n):
     return rows
 
 
-# The norm kernel's extreme calls on the main path, a Codalab batch (B =
-# 128 x T = 30: 7,680 eye images, 3,840 frames): name -> ((N, C, H, W),
-# affine, activation).
+# The NHWC norm kernel's extreme calls on the main path, a Codalab batch
+# (B = 128 x T = 30: 7,680 eye images, 3,840 frames), channels-last as the
+# bf16 forward stores them: name -> ((N, C, H, W), affine, activation).
 NORM_CALLS = {
     'eyenet_stem': ((7680, 64, 64, 64), False, 'relu'),
     'refinenet_level0_decoder': ((3840, 64, 72, 128), True, 'leaky'),
@@ -677,11 +673,19 @@ NORM_CALLS = {
     'refinenet_level4': ((3840, 256, 5, 8), True, 'relu'),
     'refinenet_level0': ((3840, 16, 72, 128), True, 'relu'),
 }
+# The general kernel's calls, NCHW: a 1x1 map (layer4 at 32 px eyes), a
+# channel count that is not a multiple of 8, and a main-path shape.
+GENERAL_NORM_CALLS = {
+    'eyenet_layer4_1x1': ((7680, 512, 1, 1), False, 'relu'),
+    'six_channels': ((3840, 6, 36, 64), True, 'leaky'),
+    'refinenet_level0_nchw': ((3840, 16, 72, 128), True, 'relu'),
+}
 NORM_SLOPE = 0.010009765625  # LeakyReLU's 0.01 rounded to bf16
 
 
-def _kernels_per_call(fn):
-    """Device kernels one call of ``fn`` launches, by the profiler."""
+def device_kernels(fn):
+    """``{name: launches}`` of the device kernels one call of ``fn``
+    launches, by the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -689,9 +693,9 @@ def _kernels_per_call(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if getattr(e, 'self_device_time_total', 0) > 0
-               and e.self_cpu_time_total == 0)
+    return {e.key: e.count for e in prof.key_averages()
+            if getattr(e, 'self_device_time_total', 0) > 0
+            and e.self_cpu_time_total == 0}
 
 
 def _launch_grid(fn, kernel):
@@ -714,6 +718,26 @@ def _launch_grid(fn, kernel):
     return int(np.prod(args['grid'])), int(np.prod(args['block']))
 
 
+def _norm_args(nk, shape, affine, act, dev, form):
+    """Seeded arguments of one norm call, the input stored in ``form``
+    ('nhwc' or 'nchw'), which must be the layout the op reads it in."""
+    n, c = shape[:2]
+    gen = torch.Generator(dev).manual_seed(0)
+    x = (2.0 * torch.randn(shape, device=dev, generator=gen)
+         + torch.randn((n, c, 1, 1), device=dev, generator=gen)
+         ).to(torch.bfloat16)
+    if form == 'nhwc':
+        x = x.contiguous(memory_format=torch.channels_last)
+    if nk.layout(x) != form:
+        raise AssertionError('norm %s: the op reads it as %s, want %s'
+                             % (shape, nk.layout(x), form))
+    weight = bias = None
+    if affine:
+        weight = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
+        bias = 0.1 * torch.randn(c, device=dev, generator=gen)
+    return (x, weight, bias, 1e-5, act, NORM_SLOPE)
+
+
 def _norm_case(nk, name, args):
     """One norm call of ``norm_kernel_phase``: the share of elements where
     the kernel differs from the plain version (the order of a plane's
@@ -731,7 +755,7 @@ def _norm_case(nk, name, args):
     if differ > 1e-3:
         raise AssertionError('norm %s: %.3g of the elements differ from '
                              'the plain version' % (name, differ))
-    launches = _kernels_per_call(lambda: nk.instance_norm(*args))
+    launches = sum(device_kernels(lambda: nk.instance_norm(*args)).values())
     ctas, threads = _launch_grid(lambda: nk.instance_norm(*args),
                                  'instance_norm_kernel')
     if launches != 1 or nk.LAUNCHES['instance_norm'] != before + 3:
@@ -742,77 +766,65 @@ def _norm_case(nk, name, args):
 
 
 def norm_kernel_phase(nk, hk):
-    """The norm kernel at ``NORM_CALLS``: ``_norm_case``'s checks, then its
-    ms beside the plain version's, an empty kernel of as many CTAs as the
-    traced launch (the launch floor) and its bound, 4 bytes an element at
-    3.35 TB/s, and the kernels each launches a call; then the NHWC kernel
-    on the same input stored channels-last, beside its own floor."""
+    """The NHWC norm kernel at ``NORM_CALLS``: ``_norm_case``'s checks,
+    then its ms beside the plain version's, an empty kernel of as many CTAs
+    as the traced launch (the launch floor) and its bound, 4 bytes an
+    element at 3.35 TB/s, and the kernels each launches a call; then the
+    general kernel at ``GENERAL_NORM_CALLS``: the same checks and its ms
+    beside its bound."""
     dev = torch.device('cuda', torch.cuda.current_device())
     rows = {}
     for name, (shape, affine, act) in NORM_CALLS.items():
-        n, c, h, w = shape
-        gen = torch.Generator(dev).manual_seed(0)
-        x = (2.0 * torch.randn(shape, device=dev, generator=gen)
-             + torch.randn((n, c, 1, 1), device=dev, generator=gen)
-             ).to(torch.bfloat16)
-        weight = bias = None
-        if affine:
-            weight = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
-            bias = 0.1 * torch.randn(c, device=dev, generator=gen)
-        args = (x, weight, bias, 1e-5, act, NORM_SLOPE)
-        lanes, vecs = nk.norm_launch(h * w)
-        differ, launches, ctas, threads = _norm_case(nk, name, args)
-        plain_launches = _kernels_per_call(
-            lambda: nk.instance_norm_plain(*args))
-        iters = 20 if x.numel() > 10 ** 9 else 50
-        rows[name] = {
-            'shape': list(shape), 'affine': affine, 'act': act,
-            'lanes': lanes, 'vecs': vecs, 'ctas': ctas, 'threads': threads,
-            'ms': time_gpu(lambda: nk.instance_norm(*args), iters),
-            'plain_ms': time_gpu(lambda: nk.instance_norm_plain(*args),
-                                 iters),
-            'launch_floor_ms': time_gpu(
-                lambda: hk.launch_empty_kernel(ctas, 1, dev), iters),
-            'bound_ms': x.numel() * 4 / PEAK_BYTES_PER_S * 1e3,
-            'bound_by': 'bytes', 'library_ms': None,
-            'launches': launches, 'plain_launches': plain_launches,
-            'differ_share': differ,
-        }
-        r = rows[name]
-        log('norm %s %s: kernel %.5f ms, plain %.5f ms, bound %.5f ms '
-            '(bytes), launch floor %.5f ms, %d CTAs of %d threads (%d lanes '
-            'x %d vectors a plane), %d vs %d kernels a call, %.2e differ'
-            % (name, shape, r['ms'], r['plain_ms'], r['bound_ms'],
-               r['launch_floor_ms'], ctas, threads, lanes, vecs, launches,
-               plain_launches, differ))
-        # The NHWC kernel on the same values stored channels-last.
-        x = x.contiguous(memory_format=torch.channels_last)
-        args = (x,) + args[1:]
+        c, h, w = shape[1:]
+        args = _norm_args(nk, shape, affine, act, dev, 'nhwc')
         tiling = nk.nhwc_launch(c, h * w)
-        differ, launches, ctas, threads = _norm_case(nk, name + ' nhwc',
-                                                     args)
+        differ, launches, ctas, threads = _norm_case(nk, name, args)
+        plain_launches = sum(device_kernels(
+            lambda: nk.instance_norm_plain(*args)).values())
+        iters = 20 if args[0].numel() > 10 ** 9 else 50
         # The floor: an empty kernel of the same grid, in clusters of the
         # largest power of two (all the empty kernel takes) up to the
         # launch's.
         floor_cluster = next(k for k in (8, 4, 2, 1)
                              if k <= tiling[1] and ctas % k == 0)
-        r['nhwc'] = {
+        rows[name] = r = {
+            'shape': list(shape), 'affine': affine, 'act': act,
             'tiling': list(tiling), 'ctas': ctas, 'threads': threads,
             'ms': time_gpu(lambda: nk.instance_norm(*args), iters),
+            'plain_ms': time_gpu(lambda: nk.instance_norm_plain(*args),
+                                 iters),
             'launch_floor_ms': time_gpu(
                 lambda: hk.launch_empty_kernel(ctas, floor_cluster, dev),
                 iters),
             'floor_cluster': floor_cluster,
+            'bound_ms': args[0].numel() * 4 / PEAK_BYTES_PER_S * 1e3,
+            'bound_by': 'bytes', 'library_ms': None,
+            'launches': launches, 'plain_launches': plain_launches,
+            'differ_share': differ,
+        }
+        log('norm %s %s nhwc: kernel %.5f ms, plain %.5f ms, bound %.5f ms '
+            '(bytes), launch floor %.5f ms, %d CTAs of %d threads (tile, '
+            'cluster, box rows, boxes %s), %d vs %d kernels a call, %.2e '
+            'differ' % (name, shape, r['ms'], r['plain_ms'], r['bound_ms'],
+                        r['launch_floor_ms'], ctas, threads, tiling,
+                        launches, plain_launches, differ))
+        del args
+        torch.cuda.empty_cache()
+    for name, (shape, affine, act) in GENERAL_NORM_CALLS.items():
+        args = _norm_args(nk, shape, affine, act, dev, 'nchw')
+        differ, launches, ctas, threads = _norm_case(nk, name, args)
+        rows[name] = r = {
+            'shape': list(shape), 'affine': affine, 'act': act,
+            'ctas': ctas, 'threads': threads,
+            'ms': time_gpu(lambda: nk.instance_norm(*args)),
+            'bound_ms': args[0].numel() * 4 / PEAK_BYTES_PER_S * 1e3,
             'launches': launches, 'differ_share': differ,
         }
-        del x, args
+        log('norm %s %s nchw: general kernel %.5f ms, bound %.5f ms '
+            '(bytes), %d CTAs of %d threads, %.2e differ'
+            % (name, shape, r['ms'], r['bound_ms'], ctas, threads, differ))
+        del args
         torch.cuda.empty_cache()
-        n = r['nhwc']
-        log('norm %s nhwc: kernel %.5f ms (nchw %.5f), bound %.5f ms, launch '
-            'floor %.5f ms, %d CTAs of %d threads (tile, cluster, box rows, '
-            'boxes %s), %.2e differ'
-            % (name, n['ms'], r['ms'], r['bound_ms'], n['launch_floor_ms'],
-               ctas, threads, tiling, differ))
     # Host us a call at a small shape, where the host sets the pace: the
     # op (its dispatch and the launch), the wrapper without autograd (past
     # the op), its CUDA implementation alone, and the plain version's eager
@@ -975,55 +987,6 @@ def forward_clips(model, clips, device):
             for i in range(len(clips))]
 
 
-def profile_forward(model, clips, steps=3, what='profile'):
-    """Where one dispatch's time goes: wall ms, device-busy ms, top kernels
-    (see ``profile_batch``)."""
-    from eve_tpu_torch.models import eve as eve_lib
-    batch = eve_lib.batch_to_tensors(
-        {k: np.stack([c[k] for c in clips]) for k in clips[0]}, 'cuda')
-    return profile_batch(model, batch, '%s: forward B=%d T=%d'
-                         % (what, len(clips), T), steps)
-
-
-def profile_batch(model, batch, what, steps=3, warmup=2):
-    """Wall ms, device-busy ms and top kernels of a forward of ``batch``
-    (device tensors); returns ``{'wall_ms', 'busy_ms', 'busy',
-    'launches', 'kernels': {name: device ms a forward}}``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with torch.inference_mode():
-        for _ in range(warmup):
-            model(batch, output_predictions=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            model(batch, output_predictions=True)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                model(batch, output_predictions=True)
-            torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, 'self_device_time_total', 0) > 0
-               and e.self_cpu_time_total == 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    launches = sum(e.count for e in kernels) / steps
-    log('%s: %.2f ms wall, %.2f ms device busy (%.0f%%), %.0f kernel '
-        'launches' % (what, wall_ms, busy_ms, 100 * busy_ms / wall_ms,
-                      launches))
-    prefix = what.split(':')[0]
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        log('%s:   %8.3f ms %5.0fx  %s'
-            % (prefix, e.self_device_time_total / 1e3 / steps,
-               e.count / steps, e.key[:90]))
-    return {'wall_ms': wall_ms, 'busy_ms': busy_ms, 'busy': busy_ms / wall_ms,
-            'launches': launches,
-            'kernels': {e.key: e.self_device_time_total / 1e3 / steps
-                        for e in kernels}}
-
-
 def serve_phase(hk):
     from eve_tpu_torch.config import Config
     from eve_tpu_torch.models import eve as eve_lib
@@ -1127,10 +1090,8 @@ def serve_phase(hk):
         cpu_errs = compare(gpu_out, cpu_out, 'card vs CPU', CPU_PX_ATOL)
         log('serve: card vs CPU forward, max abs err %s'
             % json.dumps(cpu_errs))
-        profile = profile_forward(model, [{k: v[:T] for k, v in st.items()}
-                                          for st in streams])
         labelled_forward_phase(hk, model, spec)
-        return launches, profile
+        return launches
     finally:
         server.shutdown()
         server.server_close()
@@ -1224,61 +1185,6 @@ def run_training(config, train_sets, test_sets, device, resume_from=''):
                                                             losses[step]))
     exp.close()
     return exp, losses, walls
-
-
-def profile_train_step(state, batch, device, steps=2, what='train profile'):
-    """Wall ms, device-busy ms and top kernels of one training step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from eve_tpu_torch.train import harness
-    from eve_tpu_torch.train import step as step_lib
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(steps):
-            step_lib.train_step(state, batch, harness.kappa_generator(0, i))
-        torch.cuda.synchronize(device)
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, 'self_device_time_total', 0) > 0
-               and e.self_cpu_time_total == 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    launches = sum(e.count for e in kernels) / steps
-    b, t = batch['left_eye_patch'].shape[:2]
-    log('%s: step B=%d T=%d: %.2f ms wall (profiled), %.2f ms device busy '
-        '(%.0f%%), %.0f kernel launches' % (
-            what, b, t, wall_ms, busy_ms, 100 * busy_ms / wall_ms, launches))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        log('%s:   %8.3f ms %5.0fx  %s'
-            % (what, e.self_device_time_total / 1e3 / steps, e.count / steps,
-               e.key[:90]))
-    heatmap_ms = sum(e.self_device_time_total for e in kernels
-                     if 'render_heatmaps_kernel' in e.key or
-                     'soft_argmax_kernel' in e.key) / 1e3 / steps
-    log('%s: the two heatmap kernels %.4f ms of device time a step (%.3f%% '
-        'of the busy time)' % (what, heatmap_ms, 100 * heatmap_ms / busy_ms))
-
-    # Forward, backward and update, each timed with CUDA events.
-    model = state.model
-    phases = {'forward': [], 'backward': [], 'update': []}
-    for i in range(3):
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        marks[0].record()
-        out = model(batch, training=True,
-                    generator=harness.kappa_generator(0, 10 + i))
-        marks[1].record()
-        out['full_loss'].backward()
-        marks[2].record()
-        state.step += 1
-        step_lib.apply_update(state)
-        marks[3].record()
-        torch.cuda.synchronize(device)
-        for j, name in enumerate(phases):
-            phases[name].append(marks[j].elapsed_time(marks[j + 1]))
-    log('%s: step phases (CUDA events, median of 3): %s'
-        % (what, ', '.join('%s %.2f ms' % (k, float(np.median(v)))
-                           for k, v in phases.items())))
-    return busy_ms / wall_ms
 
 
 HEATMAP_KERNELS = ('render_heatmaps', 'soft_argmax')
@@ -1511,7 +1417,7 @@ def training_phase(hk, card):
            float(np.max(np.abs(b - a) / np.abs(a))),
            RESUME_LOSS_TOL['rtol']))
 
-    # --- launches per training step and per eval batch; a profile ---
+    # --- launches per training step and per eval batch ---
     loader = harness.init_datasets(train_config(), train_sets,
                                    test_sets)[0]['synthetic']['dataloader']
     from eve_tpu_torch.data.loader import to_device
@@ -1527,12 +1433,11 @@ def training_phase(hk, card):
                              % (per_step, per_eval))
     check_norms(per_step, model.spec, 1, 'a training step')
     check_norms(per_eval, model.spec, 1, 'an eval batch')
-    busy = profile_train_step(exp2.state, batch, card)
 
     compare_card_cpu(exp.spec, card)
     return {'launches': launches, 'per_step': per_step,
             'per_eval_batch': per_eval, 'step_ms': 1e3 * step_s,
-            'peak': peak, 'busy': busy, 'exp': exp, 'resumed': resumed,
+            'peak': peak, 'exp': exp, 'resumed': resumed,
             'train_sets': train_sets, 'test_sets': test_sets}
 
 
@@ -1942,7 +1847,6 @@ def eye_net_phase(hk, card, compute_dtype='float32', native=False):
     ``compute_dtype`` (the card-vs-CPU gradients at float32 only); with
     ``native``, eve_tpu's opt-in topology (the patchify stem)."""
     from eve_tpu_torch.config import Config
-    from eve_tpu_torch.data.loader import to_device
     from eve_tpu_torch.train import harness
     config = Config()
     config.import_json(os.path.join(ROOT, 'configs', 'eye_net.json'))
@@ -1997,14 +1901,10 @@ def eye_net_phase(hk, card, compute_dtype='float32', native=False):
             what, 1e3 * step_s, EYE_STEPS, EYE_B * TRAIN_T / step_s,
             peak / 2 ** 30, card_line(),
             ', '.join('%.1f' % (1e3 * w) for w in walls)))
-    batch, _ = to_device(next(iter(train_data['synthetic']['dataloader'])),
-                         card)
-    busy = profile_train_step(exp.state, batch, card,
-                              what=what + ' profile')
     if compute_dtype == 'float32':
         eye_net_card_vs_cpu(exp.spec, card, what)
     return {'step_ms': 1e3 * step_s, 'peak': peak, 'launches': launches,
-            'busy': busy, 'state': exp.state}
+            'state': exp.state}
 
 
 def train_cli_phase(hk, card):
@@ -2256,20 +2156,13 @@ def eval_phase(hk, card):
                           'ragged batch vs full batch', CHUNK_PX_ATOL)
     log('eval: the ragged batch of %d clips vs the same clips in a full '
         'batch, max abs err %s' % (m, json.dumps(ragged_errs)))
-
-    # Where one full batch's time goes.
-    from eve_tpu_torch.data.loader import collate, to_device
-    device_batch, _ = to_device(collate(clips.clips[:batch_size]), card)
-    busy = profile_batch(model, device_batch, 'eval profile: Codalab batch '
-                         'B=%d T=%d' % (batch_size, EVAL_T), steps=1,
-                         warmup=0)['busy']
     return {'launches': {k: stream_launches[k] + launches[k]
                          for k in launches},
             'per_chunk': {k: v // STREAM_CHUNKS
                           for k, v in stream_launches.items()},
             'per_batch': {k: v // n_batches for k, v in launches.items()},
             'frames_per_s': CODALAB_CLIPS * EVAL_T / wall, 'peak': peak,
-            'batch_s': walls[0], 'busy': busy}
+            'batch_s': walls[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -2400,28 +2293,27 @@ def bf16_serve_phase(hk):
         del cpu_model, model32
 
         from eve_tpu_torch.models.eve import batch_to_tensors
-        first = {k: np.stack([st[k][:T] for st in streams])
-                 for k in streams[0]}
-        types = input_types(model, batch_to_tensors(first, 'cuda'))
+        batch = batch_to_tensors({k: np.stack([st[k][:T] for st in streams])
+                                  for k in streams[0]}, 'cuda')
+        types = input_types(model, batch)
         log('bf16 serve: convolutions receive %s, the EyeNet cells %s'
             % (sorted(map(str, types['conv'])),
                sorted(map(str, types['cell']))))
         if types != {'conv': {torch.bfloat16}, 'cell': {torch.float32}}:
             raise AssertionError('bf16 serve: input types %s' % types)
-        profile = profile_forward(model, [{k: v[:T] for k, v in st.items()}
-                                          for st in streams],
-                                  what='bf16 profile')
-        conv = {k: v for k, v in profile['kernels'].items()
-                if any(w in k.lower() for w in ('conv', 'fprop'))}
-        conv_bf16 = sum(v for k, v in conv.items() if 'bf16' in k.lower())
-        log('bf16 profile: convolution kernels %.3f ms a forward, %.3f ms '
-            'of them named bf16: %s' % (sum(conv.values()), conv_bf16,
-                                        sorted(conv)[:8]))
+        with torch.inference_mode():
+            kernels = device_kernels(
+                lambda: model(batch, output_predictions=True))
+        conv = sorted(k for k in kernels
+                      if any(w in k.lower() for w in ('conv', 'fprop')))
+        conv_bf16 = [k for k in conv if 'bf16' in k.lower()]
+        log('bf16 serve: %d convolution kernels a forward, %d of them named '
+            'bf16: %s' % (len(conv), len(conv_bf16), conv_bf16[:8]))
         if not conv_bf16:
             raise AssertionError('bf16 serve: no bf16 convolution kernel in '
-                                 'the profile: %s' % sorted(conv))
+                                 'the profile: %s' % conv)
         return {'launches': launches, 'dispatches': dispatches,
-                'requests_per_s': len(results) / wall, 'profile': profile}
+                'requests_per_s': len(results) / wall}
     finally:
         engine.stop()
 
@@ -2500,9 +2392,6 @@ def bf16_gradients_card_vs_cpu(spec16, card):
 
 def bf16_training_phase(hk, card):
     """(b): configs/refine_net.json training steps at bfloat16."""
-    from eve_tpu_torch.data.loader import to_device
-    from eve_tpu_torch.train import harness
-
     train_sets = [spec('synthetic_bf16', 13, TRAIN_B * BF16_STEPS)]
     test_sets = [spec('synthetic_val', 12, VAL_CLIPS)]
     config = train_config(tpu_compute_dtype='bfloat16',
@@ -2523,14 +2412,8 @@ def bf16_training_phase(hk, card):
     check_norms(launches, exp.spec, steps, 'bf16 training')
     check_float32_state(exp.state, 'bf16 train')
     step_s = float(np.median(walls[2:]))
-    loader = harness.init_datasets(config, train_sets, test_sets)[0][
-        'synthetic_bf16']['dataloader']
-    batch, _ = to_device(next(iter(loader)), card)
-    busy = profile_train_step(exp.state, batch, card,
-                              what='bf16 train profile')
     bf16_gradients_card_vs_cpu(exp.spec, card)
-    return {'launches': launches, 'step_ms': 1e3 * step_s, 'peak': peak,
-            'busy': busy}
+    return {'launches': launches, 'step_ms': 1e3 * step_s, 'peak': peak}
 
 
 def codalab_batch_phase(hk, card, what, **overrides):
@@ -2538,7 +2421,7 @@ def codalab_batch_phase(hk, card, what, **overrides):
     configs/refine_net.json (the bf16 phase's (d), the native phase's
     (d))."""
     from eve_tpu_torch import infer
-    from eve_tpu_torch.data.loader import DataLoader, collate, to_device
+    from eve_tpu_torch.data.loader import DataLoader
     from eve_tpu_torch.models import eve as eve_lib
 
     config = eval_config(**overrides)
@@ -2577,12 +2460,7 @@ def codalab_batch_phase(hk, card, what, **overrides):
                              % (what, outs[0]['PoG_px_final'].shape))
     check_finite(outs[0], ('PoG_px_initial', 'PoG_px_final', 'g_final',
                            'left_pupil_size'), what + ' Codalab batch')
-    device_batch, _ = to_device(collate(clips.clips), card)
-    busy = profile_batch(model, device_batch, '%s profile: Codalab batch '
-                         'B=%d T=%d' % (what, CODALAB_BATCH, EVAL_T),
-                         steps=1, warmup=0)['busy']
-    return {'launches': launches, 'batch_s': wall, 'peak': peak,
-            'busy': busy}
+    return {'launches': launches, 'batch_s': wall, 'peak': peak}
 
 
 def bf16_phase(hk, card, f32):
@@ -2593,12 +2471,6 @@ def bf16_phase(hk, card, f32):
     eye = eye_net_phase(hk, card, compute_dtype='bfloat16')
     codalab = codalab_batch_phase(hk, card, 'bf16 eval',
                                   tpu_compute_dtype='bfloat16')
-    prof, prof32 = serve['profile'], f32['serve_profile']
-    log('bf16 vs float32 (%s): serving forward B=%d T=%d %.2f ms wall vs '
-        '%.2f, device busy %.2f ms vs %.2f, %.0f launches vs %.0f'
-        % (card_line(), SESSIONS, T, prof['wall_ms'], prof32['wall_ms'],
-           prof['busy_ms'], prof32['busy_ms'], prof['launches'],
-           prof32['launches']))
     for what, ours, theirs, b in (
             ('configs/refine_net.json training', train, f32['train'],
              TRAIN_B),
@@ -2617,8 +2489,7 @@ def bf16_phase(hk, card, f32):
             codalab['peak'] / 2 ** 30, f32['eval']['peak'] / 2 ** 30))
     return {'serve': serve['launches'], 'train': train['launches'],
             'eye_net': eye['launches'], 'codalab': codalab['launches'],
-            'figures': {'serve_profile': prof, 'train': train,
-                        'eye_net': eye, 'eval': codalab}}
+            'figures': {'train': train, 'eye_net': eye, 'eval': codalab}}
 
 
 # ---------------------------------------------------------------------------
@@ -2697,44 +2568,6 @@ def state_leaves(tree):
     return [np.asarray(tree, np.float64)]
 
 
-def profile_copies(fn, trace_path):
-    """Run ``fn`` twice under torch.profiler, recording the second run (a
-    first recorded run, started with the profiler, lost the memcpy events
-    of its first dispatch): ``(device-busy ms, {'HtoD': bytes, 'DtoH':
-    bytes})``, the bytes summed over the trace's memcpy events (None where
-    the trace carries no byte counts)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    busy = []
-
-    def recorded(prof):
-        busy.append(sum(e.self_device_time_total for e in prof.key_averages()
-                        if getattr(e, 'self_device_time_total', 0) > 0
-                        and e.self_cpu_time_total == 0) / 1e3)
-        prof.export_chrome_trace(trace_path)
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=recorded) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    busy_ms, = busy
-    with open(trace_path) as f:
-        events = json.load(f).get('traceEvents', [])
-    os.remove(trace_path)
-    copies, counted_any = {'HtoD': 0, 'DtoH': 0}, False
-    for e in events:
-        nbytes = (e.get('args') or {}).get('bytes')
-        if e.get('cat') != 'gpu_memcpy' or nbytes is None:
-            continue
-        counted_any = True
-        for way in copies:
-            if way in e.get('name', ''):
-                copies[way] += int(nbytes)
-    return busy_ms, (copies if counted_any else None)
-
-
 def hold_modes(runs, what, ref=None):
     """Every served output and session state of the device-resident modes
     against the default engine's: bitwise, or else the largest difference
@@ -2780,10 +2613,9 @@ def serving_modes(hk, spec_, state_dict, what, ref=None):
     """The serve phase's sessions (SESSIONS x CHUNKS chunks of T frames,
     then LOOSE session-less requests) through the engine in each of
     SERVING_MODES, counted and timed: launches once a dispatch, a
-    dispatch's wall (host clock), device-busy time (profiler) and bytes
-    copied each way, and every output and state of the resident modes
-    against the default engine's (``hold_modes``; ``ref`` the float32
-    default run for a bfloat16 one)."""
+    dispatch's wall (host clock), and every output and state of the
+    resident modes against the default engine's (``hold_modes``; ``ref``
+    the float32 default run for a bfloat16 one)."""
     streams = client_clips(1, SESSIONS, CHUNKS * T)
     host_requests = session_requests(streams, client_clips(2, LOOSE, T))
     log('%s: a request holds %d bytes of inputs' % (what, sum(
@@ -2791,7 +2623,6 @@ def serving_modes(hk, spec_, state_dict, what, ref=None):
     card_requests = {key: {k: torch.from_numpy(np.ascontiguousarray(v))
                            .to('cuda') for k, v in clip.items()}
                      for key, clip in host_requests.items()}
-    os.makedirs(SERVE_OUT, exist_ok=True)
     runs, launches, timing = {}, {}, {}
     for mode in SERVING_MODES:
         requests = card_requests if mode == 'loopback' else host_requests
@@ -2810,9 +2641,6 @@ def serving_modes(hk, spec_, state_dict, what, ref=None):
             # --- end of the counted run ---
             dispatches = settle(engine, CHUNKS + 1, batches)
             walls = list(engine.walls)
-            busy_ms, copies = profile_copies(
-                lambda: serve_rounds(engine, requests),
-                os.path.join(SERVE_OUT, 'trace.json'))
         finally:
             engine.stop()
         if dispatches != CHUNKS + 1 or any(
@@ -2825,21 +2653,11 @@ def serving_modes(hk, spec_, state_dict, what, ref=None):
                     '%s %s' % (what, mode))
         for key, out in runs[mode][0].items():
             check_outputs(out, T, '%s %s request %s' % (what, mode, key))
-        wall_ms = 1e3 * float(np.mean(walls))
-        device_ms = busy_ms / dispatches
-        timing[mode] = {'wall_ms': wall_ms, 'device_ms': device_ms,
-                        'host_ms': wall_ms - device_ms,
-                        'h2d': copies and copies['HtoD'] / dispatches,
-                        'd2h': copies and copies['DtoH'] / dispatches}
+        timing[mode] = {'wall_ms': 1e3 * float(np.mean(walls))}
         log('%s %s: %d dispatches of B=%d T=%d, kernel launches %s; a '
-            'dispatch: %.2f ms wall, %.2f ms device busy, %.2f ms host '
-            '(wall - device), %s bytes host-to-device, %s device-to-host '
-            '(%s)' % (what, mode, dispatches, MAX_BATCH, T, launches[mode],
-                      wall_ms, device_ms, wall_ms - device_ms,
-                      'not measured' if copies is None
-                      else '%.0f' % timing[mode]['h2d'],
-                      'not measured' if copies is None
-                      else '%.0f' % timing[mode]['d2h'], card_line()))
+            'dispatch: %.2f ms wall (%s)' % (
+                what, mode, dispatches, MAX_BATCH, T, launches[mode],
+                timing[mode]['wall_ms'], card_line()))
         log('%s %s: dispatch walls ms %s' % (what, mode, ', '.join(
             '%.2f' % (1e3 * w) for w in walls)))
     hold_modes(runs, what, ref and ref['runs']['default'])
@@ -2873,8 +2691,8 @@ def resident_phase(hk):
 def native_serve_phase(hk, compute_dtype, ref32=None):
     """(a): the native model served in each mode; chunks vs one T=30
     forward and 4 clips card vs CPU (float32: CHUNK_PX_ATOL and
-    CPU_PX_ATOL; bfloat16: within the drift from float32), a profiled
-    B=8, T=10 forward and the peak memory."""
+    CPU_PX_ATOL; bfloat16: within the drift from float32) and the peak
+    memory."""
     import dataclasses
 
     from eve_tpu_torch.models import eve as eve_lib
@@ -2925,22 +2743,17 @@ def native_serve_phase(hk, compute_dtype, ref32=None):
                      BF16_CPU_RATIO)
         del model32
     del cpu_model
-    profile = profile_forward(model, [{k: v[:T] for k, v in st.items()}
-                                      for st in streams],
-                              what=what + ' profile')
     log('%s: peak device memory %.2f GiB while serving' % (what,
                                                            peak / 2 ** 30))
-    return {'modes': modes, 'profile': profile, 'peak': peak}
+    return {'modes': modes, 'peak': peak}
 
 
 def native_training_phase(hk, card, compute_dtype):
     """(b): NATIVE_STEPS configs/refine_net.json steps of the native
     topology at B = TRAIN_B, T = TRAIN_T through the harness, the last one
-    checkpointed and read back bitwise through ``infer.model_setup``, a
-    profiled step and (float32) one B=CMP_B, T=CMP_T step card vs CPU."""
+    checkpointed and read back bitwise through ``infer.model_setup``, and
+    (float32) one B=CMP_B, T=CMP_T step card vs CPU."""
     from eve_tpu_torch import infer
-    from eve_tpu_torch.data.loader import to_device
-    from eve_tpu_torch.train import harness
 
     what = 'native train' if compute_dtype == 'float32' else \
         'native bf16 train'
@@ -2980,15 +2793,9 @@ def native_training_phase(hk, card, compute_dtype):
     log('%s: checkpoint %s read back bitwise through infer.model_setup '
         '(%d tensors)' % (what, sorted(os.listdir(os.path.join(
             exp.output_dir, 'checkpoints'))), len(trained)))
-    loader = harness.init_datasets(config, train_sets, test_sets)[0][
-        'synthetic_native']['dataloader']
-    batch, _ = to_device(next(iter(loader)), card)
-    busy = profile_train_step(exp.state, batch, card,
-                              what=what + ' profile')
     if compute_dtype == 'float32':
         compare_card_cpu(exp.spec, card, what)
-    return {'launches': launches, 'step_ms': 1e3 * step_s, 'peak': peak,
-            'busy': busy}
+    return {'launches': launches, 'step_ms': 1e3 * step_s, 'peak': peak}
 
 
 def native_variants_phase(hk, card):
@@ -3041,8 +2848,8 @@ def native_variants_phase(hk, card):
 
 def native_phase(hk, card, ref):
     """Slice G at full width, each figure beside the reference topology's
-    of this run (``ref``: float32 and bfloat16 serving modes, forward
-    profiles, training steps and Codalab batches)."""
+    of this run (``ref``: float32 and bfloat16 serving modes, training
+    steps and Codalab batches)."""
     out = {}
     for dtype in ('float32', 'bfloat16'):
         tag = 'native' if dtype == 'float32' else 'native bf16'
@@ -3055,44 +2862,32 @@ def native_phase(hk, card, ref):
                                       tpu_compute_dtype=dtype)
         out[dtype] = {'serve': serve, 'train': train, 'codalab': codalab}
         r = ref[dtype]
-        prof, rprof = serve['profile'], r['serve_profile']
-        log('%s vs reference (%s): serving forward B=%d T=%d %.2f ms wall vs '
-            '%.2f, device busy %.2f ms vs %.2f (%.0f%% vs %.0f%%), %.0f '
-            'launches vs %.0f; serving peak %.2f GiB vs %.2f' % (
-                tag, card_line(), SESSIONS, T, prof['wall_ms'],
-                rprof['wall_ms'], prof['busy_ms'], rprof['busy_ms'],
-                100 * prof['busy'], 100 * rprof['busy'], prof['launches'],
-                rprof['launches'], serve['peak'] / 2 ** 30,
-                r['modes']['peak'] / 2 ** 30))
+        log('%s vs reference (%s): serving peak %.2f GiB vs %.2f' % (
+            tag, card_line(), serve['peak'] / 2 ** 30,
+            r['modes']['peak'] / 2 ** 30))
         for mode in SERVING_MODES:
-            a, b = serve['modes']['timing'][mode], r['modes']['timing'][mode]
-            log('%s vs reference: %s dispatch %.2f ms wall vs %.2f, %.2f ms '
-                'device vs %.2f, %.2f ms host vs %.2f' % (
-                    tag, mode, a['wall_ms'], b['wall_ms'], a['device_ms'],
-                    b['device_ms'], a['host_ms'], b['host_ms']))
+            log('%s vs reference: %s dispatch %.2f ms wall vs %.2f' % (
+                tag, mode, serve['modes']['timing'][mode]['wall_ms'],
+                r['modes']['timing'][mode]['wall_ms']))
         log('%s vs reference: configs/refine_net.json step B=%d T=%d %.1f ms '
-            'vs %.1f, %.1f training frames/s vs %.1f, busy %.0f%% vs %.0f%%, '
-            'peak %.2f GiB vs %.2f' % (
-                tag, TRAIN_B, TRAIN_T, train['step_ms'], r['train']['step_ms'],
-                1e3 * TRAIN_B * TRAIN_T / train['step_ms'],
-                1e3 * TRAIN_B * TRAIN_T / r['train']['step_ms'],
-                100 * train['busy'], 100 * r['train']['busy'],
-                train['peak'] / 2 ** 30, r['train']['peak'] / 2 ** 30))
+            'vs %.1f, %.1f training frames/s vs %.1f, peak %.2f GiB vs %.2f'
+            % (tag, TRAIN_B, TRAIN_T, train['step_ms'], r['train']['step_ms'],
+               1e3 * TRAIN_B * TRAIN_T / train['step_ms'],
+               1e3 * TRAIN_B * TRAIN_T / r['train']['step_ms'],
+               train['peak'] / 2 ** 30, r['train']['peak'] / 2 ** 30))
         log('%s vs reference: Codalab batch B=%d T=%d %.3f s vs %.3f, %.1f '
-            'frames/s vs %.1f, busy %.0f%% vs %.0f%%, peak %.2f GiB vs %.2f'
+            'frames/s vs %.1f, peak %.2f GiB vs %.2f'
             % (tag, CODALAB_BATCH, EVAL_T, codalab['batch_s'],
                r['eval']['batch_s'], CODALAB_BATCH * EVAL_T /
                codalab['batch_s'], CODALAB_BATCH * EVAL_T /
-               r['eval']['batch_s'], 100 * codalab['busy'],
-               100 * r['eval']['busy'], codalab['peak'] / 2 ** 30,
+               r['eval']['batch_s'], codalab['peak'] / 2 ** 30,
                r['eval']['peak'] / 2 ** 30))
     variants = native_variants_phase(hk, card)
     eye, reye = variants['eye_net'], ref['float32']['eye_net']
     log('native vs reference: configs/eye_net.json step B=%d T=%d %.1f ms vs '
-        '%.1f, busy %.0f%% vs %.0f%%, peak %.2f GiB vs %.2f' % (
+        '%.1f, peak %.2f GiB vs %.2f' % (
             EYE_B, TRAIN_T, eye['step_ms'], reye['step_ms'],
-            100 * eye['busy'], 100 * reye['busy'], eye['peak'] / 2 ** 30,
-            reye['peak'] / 2 ** 30))
+            eye['peak'] / 2 ** 30, reye['peak'] / 2 ** 30))
     out['variants'] = variants
     return out
 
@@ -3151,9 +2946,6 @@ def artifact_serve_child(args):
         # --- end of the counted run ---
         record['dispatches'] = settle(engine, CHUNKS + 1, batches)
         record['walls'] = list(engine.walls)
-        record['busy_ms'], record['copies'] = profile_copies(
-            lambda: serve_rounds(engine, requests),
-            os.path.join(EXPORT_OUT, 'trace.json'))
         bad = {k: v[:T - 1] for k, v in requests[(0, 0)].items()}
         try:
             engine.infer(bad, timeout=300)
@@ -3596,19 +3388,13 @@ def export_phase(hk, card, live, ref):
                       'non-streaming artifact serve')
     hold_against_live({('loose', 0): http_out}, live_results,
                       'artifact over HTTP (cli.serve --serve-artifact)')
-    wall_ms = 1e3 * float(np.mean(rec['walls']))
-    device_ms = rec['busy_ms'] / rec['dispatches']
-    timing = {'wall_ms': wall_ms, 'device_ms': device_ms,
-              'host_ms': wall_ms - device_ms}
-    base = live['timing']['default']
+    timing = {'wall_ms': 1e3 * float(np.mean(rec['walls']))}
     log('artifact serve: %d dispatches of B=%d T=%d, kernel launches %s; a '
-        'dispatch: %.2f ms wall, %.2f ms device busy, %.2f ms host vs the '
-        'live default engine\'s %.2f, %.2f, %.2f (%s); load %.1f s; foreign '
-        'signature refused (%s...); non-streaming artifact refused a '
-        'session (%s...)' % (
-            rec['dispatches'], MAX_BATCH, T, launches, wall_ms, device_ms,
-            wall_ms - device_ms, base['wall_ms'], base['device_ms'],
-            base['host_ms'], card_line(), rec['load_s'],
+        'dispatch: %.2f ms wall vs the live default engine\'s %.2f (%s); '
+        'load %.1f s; foreign signature refused (%s...); non-streaming '
+        'artifact refused a session (%s...)' % (
+            rec['dispatches'], MAX_BATCH, T, launches, timing['wall_ms'],
+            live['timing']['default']['wall_ms'], card_line(), rec['load_s'],
             rec['foreign_signature'][:40], rec['session_refused'][:40]))
     log('artifact serve: dispatch walls ms %s' % ', '.join(
         '%.2f' % (1e3 * w) for w in rec['walls']))
@@ -3665,9 +3451,6 @@ def mesh_serve_phase(hk, base):
             # --- end of the counted run ---
             dispatches = settle(engine, CHUNKS + 1, batches)
             walls = list(engine.walls)
-            busy_ms, _ = profile_copies(
-                lambda: serve_rounds(engine, requests),
-                os.path.join(SERVE_OUT, 'trace.json'))
         finally:
             engine.stop()
         want = {k: replicas * dispatches
@@ -3690,17 +3473,14 @@ def mesh_serve_phase(hk, base):
                 if not np.allclose(a, b, rtol=1e-4, atol=OTHER_ATOL):
                     raise AssertionError('%s: session state differs by %g'
                                          % (name, np.abs(a - b).max()))
-        wall_ms = 1e3 * float(np.mean(walls))
-        device_ms = busy_ms / dispatches
         out['launches'][name] = launches
-        out['timing'][name] = {'wall_ms': wall_ms, 'device_ms': device_ms,
-                               'host_ms': wall_ms - device_ms}
+        out['timing'][name] = {'wall_ms': 1e3 * float(np.mean(walls))}
         log('mesh serve %s: %d dispatches of B=%d T=%d over %d replica(s) '
-            'on cuda:0, kernel launches %s; a dispatch: %.2f ms wall, %.2f '
-            'ms device busy, %.2f ms host (wall - device); walls ms %s (%s)'
-            % (name, dispatches, MAX_BATCH, T, replicas, launches, wall_ms,
-               device_ms, wall_ms - device_ms,
-               ', '.join('%.2f' % (1e3 * w) for w in walls), card_line()))
+            'on cuda:0, kernel launches %s; a dispatch: %.2f ms wall; walls '
+            'ms %s (%s)' % (name, dispatches, MAX_BATCH, T, replicas,
+                            launches, out['timing'][name]['wall_ms'],
+                            ', '.join('%.2f' % (1e3 * w) for w in walls),
+                            card_line()))
         log('mesh serve %s vs the default engine (%d requests, %d '
             'sessions): max abs err %s, session states %.3g'
             % (name, len(base_results), len(states), json.dumps(out_err),
@@ -4665,13 +4445,12 @@ def main():
     norms = timed('norm kernel', norm_kernel_phase, nk, hk)
     timings = kernel_timings(hk, SESSIONS * T)
     timings_eval = kernel_timings(hk, CODALAB_N)
-    launches, serve_profile = timed('serve', serve_phase, hk)
+    launches = timed('serve', serve_phase, hk)
     resident = timed('resident', resident_phase, hk)
     train = timed('train', training_phase, hk, card0)
     cli = timed('train-cli', train_cli_phase, hk, card0)
     evals = timed('eval', eval_phase, hk, card0)
-    f32 = {'serve_profile': serve_profile, 'train': train,
-           'eye_net': cli['eye_net'], 'eval': evals,
+    f32 = {'train': train, 'eye_net': cli['eye_net'], 'eval': evals,
            'modes': resident['float32']}
     bf16 = timed('bf16', bf16_phase, hk, card0, f32)
     native = timed('native', native_phase, hk, card0, {

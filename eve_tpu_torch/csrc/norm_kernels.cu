@@ -35,38 +35,26 @@
 //   LeakyReLU with `slope` (a bf16 value): bf16(y * slope) where y <= 0.
 // A 1x1 plane gives bf16(bias[c]) (or 0), then the activation.
 //
-// What bounds it on the card: bytes. One read and one write of a bf16
-// plane is 4 bytes an element, against ~10 float32 operations: about 2.5
-// operations a byte, far below the card's ~20 float32 operations a byte.
-// Design:
-// - Every plane of the model fits on chip (at most 72 x 128 = 9,216 values,
-//   18 KB), so a plane is read once into registers, reduced, and written
-//   from the same registers: exactly one read and one write of device
-//   memory an element.
-// - 16-byte vector loads and stores (8 bf16 values). The threads that share
-//   a plane take its vectors round-robin, so neighbouring threads read
-//   neighbouring addresses; each holds up to kMaxVecs vectors, all loads
-//   issued before the first use.
-// - The wrapper picks, from HW alone, how many threads share a plane:
-//   up to 1,024 values (HW <= 32 * kMaxVecs * 8), a group of 1-32 lanes of
-//   a warp, many planes to a CTA, reduced with shuffles and no shared
-//   memory (instance_norm_kernel_group); above it, a CTA of 64-1,024
-//   threads a plane, reduced with shuffles and one shared-memory step
-//   (instance_norm_kernel_block). Every thread of a group or CTA ends with
-//   the same sums, summed in the same order, so none needs a broadcast.
-// - Any other plane (HW not a multiple of 8, an unaligned tensor, a plane
-//   over 32,768 values, a 1x1 map) takes instance_norm_kernel_scalar: a
-//   warp a plane, scalar loads, and a second read of the plane for the
-//   apply. The model meets it only at 1x1 maps.
+// Two kernels compute it, one for each layout the networks make:
+// - instance_norm_kernel_nhwc (below) takes every norm of the bf16 forward
+//   on the card, which runs channels-last: bound by bytes (one read and one
+//   write of a bf16 value, 4 bytes an element, against ~10 float32
+//   operations: about 2.5 operations a byte, far below the card's ~20).
+// - instance_norm_kernel_scalar takes any other contiguous (planes, hw)
+//   tensor, of any shape or alignment: a warp a plane, scalar loads, and a
+//   second read of the plane for the apply. The shipped models meet it only
+//   at 1x1 maps (ResNet-18's layer4 at small eyes); a direct NCHW caller, a
+//   channel count that is not a multiple of 8 and a map too large for a
+//   cluster of the NHWC kernel take it too, at a lower rate.
 //
 // ---------------------------------------------------------------------------
-// The same norm on a channels-last tensor: instance_norm_kernel_nhwc.
+// The channels-last kernel: instance_norm_kernel_nhwc.
 //
 // The bf16 EVE forward runs channels-last on the card (cuDNN's bf16
 // convolutions are NHWC kernels), so its norms get (N, H, W, C) storage. For
 // each sample x is then a row-major (HW, C) matrix, and a plane's statistics
-// are a column's sums. Same arithmetic and roundings as above; only the
-// order of a column's float32 sums differs. Still bound by bytes. Design:
+// are a column's sums. The arithmetic and roundings above; only the order
+// of a column's float32 sums differs from the plain version's. Design:
 // - A CTA takes a slab of one sample: a tile of CT channels (the wrapper
 //   picks 32 or more where C allows: rows of 64 bytes or more, since on the
 //   card 32-byte rows ran at ~70% of the bytes bound and 16-byte ones under
@@ -110,11 +98,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kGroupThreads = 256;    // CTA of the group kernel
-constexpr int kScalarThreads = 256;   // CTA of the scalar kernel: a warp a plane
-constexpr int kMaxBlockThreads = 1024;
-constexpr int kMaxVecs = 4;           // 16-byte vectors a thread holds
-constexpr int kVec = 8;               // bf16 values a vector
+constexpr int kScalarThreads = 256;  // CTA of the scalar kernel: a warp a plane
+constexpr int kVec = 8;              // bf16 values a 16-byte vector
 
 enum Act { kNone = 0, kRelu = 1, kLeaky = 2 };
 
@@ -138,25 +123,6 @@ __device__ __forceinline__ float lo_of(uint32_t u) {
 }
 __device__ __forceinline__ float hi_of(uint32_t u) {
   return __uint_as_float(u & 0xffff0000u);
-}
-
-__device__ __forceinline__ void accumulate(uint32_t u, float& sum,
-                                           float& sumsq) {
-  const float a = lo_of(u), b = hi_of(u);
-  // A bf16 value's square is exact in float32, so a fused multiply-add
-  // rounds the sum once, as a separate add would.
-  sum += a;
-  sumsq = fmaf(a, a, sumsq);
-  sum += b;
-  sumsq = fmaf(b, b, sumsq);
-}
-
-__device__ __forceinline__ void accumulate(const uint4& v, float& sum,
-                                           float& sumsq) {
-  accumulate(v.x, sum, sumsq);
-  accumulate(v.y, sum, sumsq);
-  accumulate(v.z, sum, sumsq);
-  accumulate(v.w, sum, sumsq);
 }
 
 // The plane's bf16 scale and shift from its float32 sums, with the plain
@@ -190,107 +156,11 @@ __device__ __forceinline__ float apply(float x, float scale, float shift,
   return activate(round_bf16(__fadd_rn(y, shift)), p);
 }
 
-__device__ __forceinline__ uint32_t apply(uint32_t u, float scale,
-                                          float shift, const Params& p) {
-  const float a = apply(lo_of(u), scale, shift, p);
-  const float b = apply(hi_of(u), scale, shift, p);
-  // Both are bf16 values: their top halves are their bf16 bits.
-  return (__float_as_uint(b) & 0xffff0000u) | (__float_as_uint(a) >> 16);
-}
-
-__device__ __forceinline__ uint4 apply(const uint4& v, float scale,
-                                       float shift, const Params& p) {
-  return make_uint4(apply(v.x, scale, shift, p), apply(v.y, scale, shift, p),
-                    apply(v.z, scale, shift, p), apply(v.w, scale, shift, p));
-}
-
-// Sums over the `lanes` lanes (a power of two, at most 32) of an aligned
-// group of a warp; every lane of the warp takes part.
-__device__ __forceinline__ void group_sum(float& sum, float& sumsq,
-                                          int lanes) {
-  for (int off = lanes >> 1; off > 0; off >>= 1) {
+// Sums over the lanes of a warp.
+__device__ __forceinline__ void warp_sum(float& sum, float& sumsq) {
+  for (int off = 16; off > 0; off >>= 1) {
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
     sumsq += __shfl_xor_sync(0xffffffffu, sumsq, off);
-  }
-}
-
-// Planes of up to 32 * V vectors: a group of 2^lanes_log2 lanes a plane,
-// each lane V vectors (lane, lane + lanes, ...), kGroupThreads threads a
-// CTA.
-template <int V>
-__global__ void __launch_bounds__(kGroupThreads)
-instance_norm_kernel_group(const uint4* __restrict__ x,
-                           uint4* __restrict__ y, int planes, int nvec,
-                           int lanes_log2, Params p) {
-  const int lanes = 1 << lanes_log2;
-  const long long t =
-      static_cast<long long>(blockIdx.x) * kGroupThreads + threadIdx.x;
-  const long long plane = t >> lanes_log2;
-  const int lane = static_cast<int>(t & (lanes - 1));
-  const bool live = plane < planes;
-  const uint4* src = x + plane * nvec;
-  uint4 v[V];
-  float sum = 0.f, sumsq = 0.f;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int k = lane + i * lanes;
-    v[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (live && k < nvec) v[i] = __ldg(src + k);
-  }
-#pragma unroll
-  for (int i = 0; i < V; ++i) accumulate(v[i], sum, sumsq);
-  group_sum(sum, sumsq, lanes);
-  if (!live) return;
-  float scale, shift;
-  scale_shift(sum, sumsq, static_cast<int>(plane % p.channels), p, scale,
-              shift);
-  uint4* dst = y + plane * nvec;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int k = lane + i * lanes;
-    if (k < nvec) dst[k] = apply(v[i], scale, shift, p);
-  }
-}
-
-// Larger planes: a CTA of blockDim.x (a multiple of 32) threads a plane,
-// each V vectors.
-template <int V>
-__global__ void __launch_bounds__(kMaxBlockThreads)
-instance_norm_kernel_block(const uint4* __restrict__ x,
-                           uint4* __restrict__ y, int nvec, Params p) {
-  __shared__ float2 partial[kMaxBlockThreads / 32];
-  const long long plane = blockIdx.x;
-  const int threads = blockDim.x;
-  const uint4* src = x + plane * nvec;
-  uint4 v[V];
-  float sum = 0.f, sumsq = 0.f;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int k = threadIdx.x + i * threads;
-    v[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (k < nvec) v[i] = __ldg(src + k);
-  }
-#pragma unroll
-  for (int i = 0; i < V; ++i) accumulate(v[i], sum, sumsq);
-  group_sum(sum, sumsq, 32);
-  if ((threadIdx.x & 31) == 0)
-    partial[threadIdx.x >> 5] = make_float2(sum, sumsq);
-  __syncthreads();
-  // Every thread sums the warps' partials in the same order.
-  sum = 0.f;
-  sumsq = 0.f;
-  for (int w = 0; w < threads / 32; ++w) {
-    sum += partial[w].x;
-    sumsq += partial[w].y;
-  }
-  float scale, shift;
-  scale_shift(sum, sumsq, static_cast<int>(plane % p.channels), p, scale,
-              shift);
-  uint4* dst = y + plane * nvec;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int k = threadIdx.x + i * threads;
-    if (k < nvec) dst[k] = apply(v[i], scale, shift, p);
   }
 }
 
@@ -319,9 +189,11 @@ instance_norm_kernel_scalar(const __nv_bfloat16* __restrict__ x,
   for (int k = lane; k < hw; k += 32) {
     const float a = __bfloat162float(src[k]);
     sum += a;
+    // A bf16 value's square is exact in float32, so a fused multiply-add
+    // rounds the sum once, as a separate add would.
     sumsq = fmaf(a, a, sumsq);
   }
-  group_sum(sum, sumsq, 32);
+  warp_sum(sum, sumsq);
   float scale, shift;
   scale_shift(sum, sumsq, c, p, scale, shift);
   for (int k = lane; k < hw; k += 32)
@@ -628,85 +500,33 @@ bool misaligned(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15u) != 0;
 }
 
-template <int V>
-void launch_group(const void* x, void* y, int planes, int nvec,
-                  int lanes_log2, int ctas, const Params& p,
-                  cudaStream_t stream) {
-  instance_norm_kernel_group<V><<<ctas, kGroupThreads, 0, stream>>>(
-      static_cast<const uint4*>(x), static_cast<uint4*>(y), planes, nvec,
-      lanes_log2, p);
-}
-
-template <int V>
-void launch_block(const void* x, void* y, int planes, int nvec, int threads,
-                  const Params& p, cudaStream_t stream) {
-  instance_norm_kernel_block<V><<<planes, threads, 0, stream>>>(
-      static_cast<const uint4*>(x), static_cast<uint4*>(y), nvec, p);
-}
-
 }  // namespace
 
 extern "C" {
 
 // x, y: (planes, hw) bf16, contiguous, plane p of channel p % channels;
-// weight, bias: (channels,) float32 or null. lanes: threads a plane; vecs:
-// 16-byte vectors a thread (1..4), or 0 for the scalar path (a warp a
-// plane). With vecs > 0: hw % 8 == 0, x and y 16-byte aligned,
-// lanes * vecs * 8 >= hw, and lanes a power of two up to 32 (a group of a
-// warp) or a multiple of 32 up to 1024 (a CTA). act: 0 none, 1 ReLU,
-// 2 LeakyReLU with `slope`.
+// weight, bias: (channels,) float32 or null. A warp a plane. act: 0 none,
+// 1 ReLU, 2 LeakyReLU with `slope`.
 int eve_instance_norm(const void* x, void* y, const void* weight,
                       const void* bias, int planes, int channels, int hw,
-                      int lanes, int vecs, float inv_hw, float eps, int act,
-                      float slope, int device, void* stream) {
+                      float inv_hw, float eps, int act, float slope,
+                      int device, void* stream) {
   if (planes <= 0) return 0;
   if (channels <= 0 || planes % channels != 0 || hw <= 0 || act < kNone ||
-      act > kLeaky || vecs < 0 || vecs > kMaxVecs)
+      act > kLeaky)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{static_cast<const float*>(weight),
                  static_cast<const float*>(bias), channels, inv_hw, eps, act,
                  slope};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (vecs == 0) {
-    const int ctas = static_cast<int>(
-        (static_cast<long long>(planes) + kScalarThreads / 32 - 1) /
-        (kScalarThreads / 32));
-    instance_norm_kernel_scalar<<<ctas, kScalarThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
-        planes, hw, p);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (hw % kVec != 0 || misaligned(x) || misaligned(y) || lanes < 1 ||
-      static_cast<long long>(lanes) * vecs * kVec < hw)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int nvec = hw / kVec;
-  if (lanes <= 32) {
-    if ((lanes & (lanes - 1)) != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const long long threads = static_cast<long long>(planes) * lanes;
-    const long long ctas = (threads + kGroupThreads - 1) / kGroupThreads;
-    if (ctas > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-    const int grid = static_cast<int>(ctas);
-    int lanes_log2 = 0;
-    while ((1 << lanes_log2) < lanes) ++lanes_log2;
-    switch (vecs) {
-      case 1: launch_group<1>(x, y, planes, nvec, lanes_log2, grid, p, s); break;
-      case 2: launch_group<2>(x, y, planes, nvec, lanes_log2, grid, p, s); break;
-      case 3: launch_group<3>(x, y, planes, nvec, lanes_log2, grid, p, s); break;
-      default: launch_group<4>(x, y, planes, nvec, lanes_log2, grid, p, s);
-    }
-  } else {
-    if (lanes % 32 != 0 || lanes > kMaxBlockThreads)
-      return static_cast<int>(cudaErrorInvalidValue);
-    switch (vecs) {
-      case 1: launch_block<1>(x, y, planes, nvec, lanes, p, s); break;
-      case 2: launch_block<2>(x, y, planes, nvec, lanes, p, s); break;
-      case 3: launch_block<3>(x, y, planes, nvec, lanes, p, s); break;
-      default: launch_block<4>(x, y, planes, nvec, lanes, p, s);
-    }
-  }
+  const int ctas = static_cast<int>(
+      (static_cast<long long>(planes) + kScalarThreads / 32 - 1) /
+      (kScalarThreads / 32));
+  instance_norm_kernel_scalar<<<ctas, kScalarThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
+      planes, hw, p);
   return static_cast<int>(cudaGetLastError());
 }
 

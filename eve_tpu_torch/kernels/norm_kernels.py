@@ -6,8 +6,10 @@ eve_tpu has no kernel here: its ``instance_norm``
 LeakyReLU after it into one pass over the map. Run eagerly, the port's bf16
 form is about 16 launches a norm, one more for the activation, and some 34
 bytes of device memory an element; ``eve_tpu_torch/csrc/norm_kernels.cu``
-does it in one launch that reads and writes each plane once (4 bytes an
-element), and says how.
+does it in one launch, and says how: a channels-last kernel (the bf16
+forward on the card runs channels-last) that reads and writes each plane
+once (4 bytes an element), and a general kernel (a warp a plane) for any
+other shape.
 
 Beside the kernel, in this module:
 
@@ -28,10 +30,11 @@ Beside the kernel, in this module:
   records the call (no autograd graph, no tracing, no dispatch mode), the
   op's CUDA implementation straight away: the op's dispatch doubles the
   host time of a call, and the host sets the pace of a bf16 forward;
-- the layout choice (``layout``): an NCHW-contiguous input takes the NCHW
-  kernels, a channels-last one (the bf16 forward on the card runs
-  channels-last) the NHWC kernel, with its output channels-last too
-  (``nhwc_launch`` tiles it), and any other strides a contiguous copy;
+- the layout choice (``layout``): a channels-last input that
+  ``nhwc_launch`` tiles takes the NHWC kernel, with its output
+  channels-last too; any other input (NCHW, a 1x1 map, a channel count
+  that is not a multiple of 8, a map too large for a cluster) the general
+  kernel on a contiguous copy where it is not contiguous already;
 - a launch count (``LAUNCHES``), bumped once per kernel launch and nowhere
   else.
 
@@ -53,11 +56,8 @@ from eve_tpu_torch.kernels import build
 
 # Activations the kernel folds in, by name, and their codes in csrc.
 ACTS = {'none': 0, 'relu': 1, 'leaky': 2}
-# bf16 values in a 16-byte vector; vectors a thread holds (csrc).
+# bf16 values in a 16-byte vector (csrc).
 VEC = 8
-MAX_VECS = 4
-# Threads of a plane at most (a CTA of the block kernel).
-MAX_BLOCK_THREADS = 1024
 
 # The NHWC kernel: its channel tiles, largest first; the CTAs of a cluster,
 # the widest tile a cluster splits, the rows of a TMA box and the boxes of
@@ -74,9 +74,9 @@ MAX_SLAB_BYTES = 200 * 1024
 _SIGNATURES = {
     'eve_instance_norm': (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_void_p),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p),
     'eve_instance_norm_nhwc': (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -101,29 +101,6 @@ def _count_launch(name):
 
 def _library():
     return build.load_library('norm_kernels', _SIGNATURES)
-
-
-def norm_launch(hw, aligned=True):
-    """``(lanes, vecs)`` of a launch over planes of ``hw`` values: the
-    threads that share a plane and the 16-byte vectors each holds.
-
-    At most ``MAX_VECS`` vectors a thread: a plane of up to 128 vectors
-    takes the smallest power-of-two group of warp lanes that holds it, a
-    larger one the fewest whole warps that do, up to ``MAX_BLOCK_THREADS``.
-    ``vecs`` 0 is the scalar path (a warp a plane): ``hw`` not a multiple of
-    ``VEC``, an unaligned tensor, or a plane too large to hold.
-    """
-    if hw % VEC or not aligned:
-        return 32, 0
-    nvec = hw // VEC
-    per_lane = -(-nvec // MAX_VECS)
-    if per_lane <= 32:
-        lanes = 1 << (per_lane - 1).bit_length()
-    else:
-        lanes = 32 * -(-per_lane // 32)
-        if lanes > MAX_BLOCK_THREADS:
-            return 32, 0
-    return lanes, -(-nvec // lanes)
 
 
 def _cdiv(a, b):
@@ -165,18 +142,16 @@ def nhwc_launch(c, hw):
 
 
 def layout(x):
-    """How the kernel takes ``x``: 'nchw' (contiguous: the NCHW kernels),
-    'nhwc' (a channels-last (N, C, H, W) tensor that ``nhwc_launch`` takes:
-    the NHWC kernel, and the output channels-last too) or 'copy' (any other
-    strides: a contiguous copy, then the NCHW kernels)."""
-    if x.is_contiguous():
-        return 'nchw'
+    """The layout the kernel reads ``x`` in: 'nhwc' (a channels-last
+    (N, C, H, W) tensor that ``nhwc_launch`` tiles: the NHWC kernel, and the
+    output channels-last too) or 'nchw' (anything else: the general kernel
+    on ``x`` made contiguous, and a contiguous output)."""
     # Plain ints: a traced shape (a fake tensor's) specialises to its value.
     if x.ndim == 4 and x.is_contiguous(memory_format=torch.channels_last) \
             and nhwc_launch(int(x.shape[1]),
                             int(x.shape[2] * x.shape[3])) is not None:
         return 'nhwc'
-    return 'copy'
+    return 'nchw'
 
 
 def out_format(x):
@@ -282,9 +257,9 @@ def _norm_cuda(x, weight, bias, eps, act, slope):
         raise ValueError('instance_norm act %r is none of %s'
                          % (act, sorted(ACTS)))
     form = layout(x)
-    if form == 'copy':
+    if form == 'nchw':
         x = x.contiguous()
-    elif form == 'nhwc' and x.data_ptr() % 16:
+    elif x.data_ptr() % 16:
         # TMA needs a 16-byte aligned base.
         x = x.clone(memory_format=torch.channels_last)
     out = torch.empty_like(x)
@@ -307,9 +282,7 @@ def _norm_cuda(x, weight, bias, eps, act, slope):
         err = _library().eve_instance_norm_nhwc(
             *pointers, x.shape[0], c, hw, *nhwc_launch(c, hw), *rest)
     else:
-        lanes, vecs = norm_launch(hw, x.data_ptr() % 16 == 0)
-        err = _library().eve_instance_norm(*pointers, planes, c, hw, lanes,
-                                           vecs, *rest)
+        err = _library().eve_instance_norm(*pointers, planes, c, hw, *rest)
     _check_launch(err, 'instance_norm')
     _count_launch('instance_norm')
     return out

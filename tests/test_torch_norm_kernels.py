@@ -6,25 +6,28 @@ the norm followed by the activation module as the networks composed them
 before the activation moved into the norm, bitwise, at float32 and
 bfloat16; the networks' state_dict names are the reference's; the op
 passes ``opcheck``, its backward is autograd's through the plain version,
-and its fake implementation launches nothing; the launch shape follows the
-plane size; the wrapper skips the op's dispatch only where nothing records the
-call; a bf16 ``Conv2d`` keeps its casts only without autograd and while its
-parameters are unchanged.
+and its fake implementation launches nothing; the wrapper skips the op's
+dispatch only where nothing records the call; a bf16 ``Conv2d`` keeps its
+casts only without autograd and while its parameters are unchanged.
 
 Channels-last, on the CPU: the plain version on a channels-last input
 gives the NCHW values within one bf16 ulp, in the input's layout; the op's
 fake gives the layout its CUDA implementation writes; the layout choice
-(NCHW kernels, the NHWC kernel, or a contiguous copy) and the NHWC
-kernel's tiling.
+(the NHWC kernel, or the general kernel on a contiguous input) and the
+NHWC kernel's tiling; every norm of each shipped configuration's bf16
+forward, channels-last, at 128 px eyes and smaller, takes the NHWC kernel
+unless its map is 1x1.
 
-On the card (``cuda`` marker; skipped without one): the kernel against the
-plain version at every norm of a bf16 EVE forward, at the NHWC kernel's
-shapes of a Codalab forward (channels-last), and at the odd shapes (a 1x1
-map, planes not a multiple of 8 values, one plane, an unaligned tensor, a
-plane too large for registers), where outputs may differ only by the order
-of a plane's float32 sums tipping the bf16 rounding of its scale or shift;
-the call past the op against the op; the gradient through the op; and the
-forward's launch count.
+On the card (``cuda`` marker; skipped without one): the kernels against the
+plain version at every norm of a bf16 EVE forward (channels-last: the NHWC
+kernel), at each of its shapes in both layouts (NCHW: the general kernel),
+at the NHWC kernel's shapes of a Codalab forward, and at the odd shapes
+the general kernel takes (a 1x1 map, planes not a multiple of 8 values,
+one plane, an unaligned tensor, a large plane),
+where outputs may differ only by the order of a plane's float32 sums
+tipping the bf16 rounding of its scale or shift; the call past the op
+against the op; the gradient through the op; and the forward's launch
+count.
 """
 
 import os
@@ -257,14 +260,15 @@ def test_channels_last_plain_matches_nchw(affine, act):
 
 @pytest.mark.parametrize('case,want', [
     ('nchw', 'nchw'), ('channels_last', 'nhwc'),
-    ('channels_last_odd_channels', 'copy'), ('channels_last_1x1', 'nchw'),
-    ('sliced', 'copy'), ('three_dims', 'nchw'),
-    ('channels_last_too_large', 'copy')])
+    ('channels_last_odd_channels', 'nchw'), ('channels_last_1x1', 'nchw'),
+    ('sliced', 'nchw'), ('three_dims', 'nchw'),
+    ('channels_last_too_large', 'nchw')])
 def test_layout_choice(case, want):
-    """Contiguous: the NCHW kernels; channels-last of a shape the NHWC
-    kernel tiles: the NHWC kernel; any other strides (channels-last with a
-    channel count the kernel does not take, a slice, a map too large for a
-    cluster): a contiguous copy. A 1x1 map is both layouts at once: NCHW."""
+    """Channels-last of a shape the NHWC kernel tiles: the NHWC kernel;
+    anything else (contiguous, channels-last with a channel count the
+    kernel does not take, a 1x1 map, a slice, a map too large for a
+    cluster): the general kernel, on a contiguous copy where the input is
+    not contiguous."""
     x = {
         'nchw': lambda: torch.empty(2, 16, 4, 4),
         'channels_last': lambda: torch.empty(2, 16, 4, 4).contiguous(
@@ -346,30 +350,67 @@ def test_cpu_norms_launch_nothing_and_other_devices_are_refused():
         layers.InstanceNorm(4, act='gelu')
 
 
-@pytest.mark.parametrize('hw,aligned,want', [
-    (16, True, (1, 2)),        # ResNet-18 layer4, 4x4
-    (40, True, (2, 3)),        # RefineNet level 4, 5x8
-    (64, True, (2, 4)),        # layer3, 8x8
-    (144, True, (8, 3)),       # level 3, 9x16
-    (256, True, (8, 4)),       # layer2, 16x16
-    (576, True, (32, 3)),      # level 2, 18x32
-    (1024, True, (32, 4)),     # layer1, 32x32
-    (2304, True, (96, 3)),     # level 1, 36x64
-    (4096, True, (128, 4)),    # the stem, 64x64
-    (9216, True, (288, 4)),    # level 0, 72x128
-    (32768, True, (1024, 4)),  # the largest plane held in registers
-    (32776, True, (32, 0)),    # larger: the scalar path
-    (8, True, (1, 1)),
-    (1, True, (32, 0)),        # a 1x1 map
-    (63, True, (32, 0)),       # not a multiple of 8
-    (64, False, (32, 0)),      # an unaligned tensor
-])
-def test_norm_launch(hw, aligned, want):
-    lanes, vecs = nk.norm_launch(hw, aligned)
-    assert (lanes, vecs) == want
-    if vecs:
-        assert lanes * vecs * nk.VEC >= hw
-        assert vecs <= nk.MAX_VECS
+# Shipped configurations: (config file, overrides), and the eye sizes of
+# each (128 px and the smaller ones the parity tests use).
+MODEL_CONFIGS = {
+    'eye_net': ('eye_net.json', {}),
+    'refine_net': ('refine_net.json', {}),
+    'patchify': ('refine_net.json', {'tpu_native_arch': True,
+                                     'tpu_native_stem': 'patchify'}),
+    'patchify8': ('refine_net.json', {'tpu_native_arch': True,
+                                      'tpu_native_stem': 'patchify8'}),
+}
+MODEL_EYES = {'eye_net': (128, 64, 48, 32), 'refine_net': (128, 64, 48, 32),
+              'patchify': (128, 64, 48, 32), 'patchify8': (128, 72, 64, 48)}
+
+
+@pytest.mark.parametrize('name,eyes', [
+    (name, eyes) for name in MODEL_CONFIGS for eyes in MODEL_EYES[name]])
+def test_model_norms_take_the_nhwc_kernel(name, eyes, monkeypatch):
+    """Every norm input of a bf16 forward (B = 1, T = 1, seeded weights)
+    of a shipped configuration, channels-last as on the card: the NHWC
+    kernel tiles each map of more than one value, so only 1x1 maps (the
+    last ResNet-18 stage at small eyes) take the general kernel."""
+    from eve_tpu_torch.config import Config
+    from eve_tpu_torch.data.synthetic import make_synthetic_batch
+    from eve_tpu_torch.models import eve as eve_lib
+
+    path, overrides = MODEL_CONFIGS[name]
+    config = Config()
+    config.import_json(os.path.join(ROOT, 'configs', path))
+    config.import_dict(dict(overrides, tpu_compute_dtype='bfloat16',
+                            eyes_size=[eyes, eyes]))
+    spec = eve_lib.EveSpec.from_config(config)
+    model = eve_lib.init_model(spec, torch.Generator().manual_seed(0),
+                               device='cpu')
+    batch = make_synthetic_batch(np.random.RandomState(0), batch_size=1,
+                                 sequence_len=1, eyes_size=eyes,
+                                 frame_dtype=np.uint8)
+    monkeypatch.setattr(layers, 'runs_channels_last',
+                        lambda dtype, device: dtype == torch.bfloat16)
+    seen = []
+    hooks = [m.register_forward_hook(
+                 lambda mod, args, out, where=where: seen.append(
+                     (where, args[0])))
+             for where, m in model.named_modules()
+             if isinstance(m, layers.InstanceNorm)]
+    try:
+        with torch.inference_mode():
+            model(eve_lib.batch_to_tensors(batch, 'cpu'),
+                  output_predictions=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    assert seen
+    for where, x in seen:
+        c, h, w = x.shape[1:]
+        assert x.dtype == torch.bfloat16
+        if h * w > 1:
+            assert nk.nhwc_launch(c, h * w) is not None, (where, x.shape)
+            assert nk.layout(x) == 'nhwc', (where, x.shape)
+        else:
+            assert '.layer4.' in where, (where, x.shape)
+            assert nk.layout(x) == 'nchw', (where, x.shape)
 
 
 class _AnyMode(torch.utils._python_dispatch.TorchDispatchMode):
@@ -610,8 +651,9 @@ NHWC_SHAPES = [(64, 64, 64), (64, 32, 32), (128, 16, 16), (256, 8, 8),
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(card_forward):
     """Every (C, H, W) of the forward's norms at N = 3, affine or not, each
-    activation, on seeded inputs, in both layouts, and the NHWC kernel's
-    shapes channels-last; then the odd shapes."""
+    activation, on seeded inputs, in both layouts (NCHW: the general
+    kernel), and the NHWC kernel's shapes channels-last; then the odd
+    shapes, which the general kernel takes."""
     shapes = sorted({tuple(x.shape[1:]) for _, x in card_forward['norms']})
     extra = [(2, 5, 1, 1), (2, 3, 7, 9), (2, 3, 3, 3), (1, 1, 9, 16),
              (1, 1, 72, 128), (2, 4, 1, 8), (1, 2, 256, 256)]
@@ -632,7 +674,7 @@ def test_kernel_matches_plain_on_card(card_forward):
                     d, t = _compare(x, weight, bias, act)
                     n_diff, total = n_diff + d, total + t
         # An unaligned tensor (its first value 2 bytes past an aligned
-        # address) takes the scalar path.
+        # address).
         base = _inputs((1, 3 * 4 * 8 * 8 + 1, 1, 1), 9, torch.bfloat16,
                        'cuda').flatten()
         x = base[1:].view(3, 4, 8, 8)
